@@ -1,0 +1,18 @@
+"""Tree-batch entry points for the arena planners.
+
+Port of ``rl_agents_tpu/agents/tree_search/batch.py``. The JAX package vmaps
+a single-tree planner over a leading batch axis of ``states0`` and ``keys``;
+the port's planners are batch-first already, so each entry point is a name
+over its planner with the same call convention, a ``torch.Generator`` in
+place of the per-tree keys.
+"""
+from __future__ import annotations
+
+from rl_agents_torch.agents.tree_search.olop import olop_plan
+
+
+def olop_plan_batch(env, params, states0, generator=None, **kw):
+    """Batched KL-OLOP (reference: olop.py:11-200, swept by the study at
+    scripts/planners_evaluation.py:53-124). Returns ``(actions [B, H],
+    lengths [B], OLOPTree)``."""
+    return olop_plan(env, params, states0, generator, **kw)

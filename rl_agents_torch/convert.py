@@ -1,0 +1,42 @@
+"""Carry state between the JAX package and this one.
+
+For a planner the "weights" are the env params, the env states and the tree
+arenas. ``from_numpy`` turns the JAX package's NamedTuples (taken as numpy
+arrays, e.g. ``CartPoleParams/State``, ``MDPParams/State``) into this
+package's tensors; ``tree_to_numpy`` goes the other way for comparisons.
+Tests and ``chip_smoke.py`` use this module; the planning path does not.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rl_agents_torch.utils.device import resolve_device
+
+
+def _to_tensor(value, device) -> torch.Tensor:
+    array = np.array(value)  # a copy: JAX hands out read-only buffers
+    if array.dtype.kind == "f":
+        array = array.astype(np.float32)
+    elif array.dtype.kind in "iu":
+        array = array.astype(np.int64)  # index tensors are int64 in the port
+    return torch.as_tensor(array, device=device)
+
+
+def from_numpy(namedtuple_cls, arrays, device="cuda"):
+    """Build ``namedtuple_cls`` from a NamedTuple or mapping of array-likes,
+    field by field: floats as float32, integers as int64, bools as bool."""
+    device = resolve_device(device)
+    values = arrays._asdict() if hasattr(arrays, "_asdict") else dict(arrays)
+    return namedtuple_cls(**{name: _to_tensor(values[name], device)
+                             for name in namedtuple_cls._fields})
+
+
+def tree_to_numpy(tree):
+    """NamedTuple of tensors -> the same NamedTuple of numpy arrays, integer
+    fields as int32 (the JAX package's arena dtype)."""
+    def convert(t):
+        array = t.detach().cpu().numpy()
+        return array.astype(np.int32) if array.dtype.kind in "iu" else array
+
+    return type(tree)(*(convert(t) for t in tree))

@@ -1,0 +1,156 @@
+"""Functional environment core, batch-first.
+
+Port of ``rl_agents_tpu/envs/base.py``. An environment is a pair of pure
+functions over NamedTuples of tensors that carry a leading batch dimension:
+
+    reset(params, generator, batch)         -> (state, obs)
+    step(params, state, action, generator)  -> StepOut
+
+"Forking" a simulation is carrying the state value, and one ``step`` over
+``[B]`` states replaces the JAX package's ``vmap``. ``EnvHandle`` adapts the
+pure core to the object-style harness/agent API (act/record loops, seeding
+protocol) with a batch of one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from rl_agents_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Discrete:
+    n: int
+
+    @property
+    def shape(self):
+        return ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Box:
+    low: Any
+    high: Any
+    shape: Tuple[int, ...]
+
+
+class StepOut(NamedTuple):
+    """The single step signature of this framework, batch-first."""
+
+    state: Any
+    obs: Any
+    reward: Any
+    terminated: Any
+    truncated: Any
+    info: Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvSpec:
+    id: str
+    max_episode_steps: int | None = None
+
+
+def params_to(params, device: torch.device):
+    """Move every tensor field of a params/state NamedTuple to ``device``."""
+    return type(params)(*(torch.as_tensor(v).to(device) for v in params))
+
+
+class FunctionalEnv:
+    """Static environment definition: subclasses implement ``reset`` and
+    ``step`` as pure tensor functions of a params NamedTuple; the instance
+    holds only static structure (sizes, spaces)."""
+
+    spec: EnvSpec = EnvSpec("functional-env")
+
+    def default_params(self, device="cuda"):
+        raise NotImplementedError
+
+    def reset(self, params, generator: torch.Generator, batch: int = 1) -> Tuple[Any, Any]:
+        raise NotImplementedError
+
+    def step(self, params, state, action, generator: torch.Generator | None = None) -> StepOut:
+        raise NotImplementedError
+
+    def observe(self, params, state):
+        raise NotImplementedError
+
+    @property
+    def action_space(self) -> Discrete | Box:
+        raise NotImplementedError
+
+    @property
+    def observation_space(self) -> Discrete | Box:
+        raise NotImplementedError
+
+    def preprocess(self, name: str, args) -> "FunctionalEnv":
+        """Named env preprocessors (reference: factory.py:97-116)."""
+        raise ValueError(f"{type(self).__name__} has no preprocessor {name!r}")
+
+
+class EnvHandle:
+    """Gym-style stateful adapter over a functional env, holding a batch of
+    one state on ``device``. Forking (the reference's ``safe_deepcopy_env``)
+    stamps the state into a new handle; state tensors are never written in
+    place, so sharing them is safe."""
+
+    def __init__(self, env: FunctionalEnv, params=None, config: Dict | None = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.functional = env
+        self.params = params_to(params if params is not None
+                                else env.default_params(self.device), self.device)
+        self.config = dict(config or {})
+        self.state = None
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(0)
+        # the reference's load_environment resets envs on creation
+        # (factory.py:59-94); planners rely on a live state
+        self.reset(seed=self.config.get("seed"))
+
+    @property
+    def spec(self):
+        return self.functional.spec
+
+    @property
+    def action_space(self):
+        return self.functional.action_space
+
+    def seed(self, seed: int | None = None):
+        if seed is not None:
+            self.generator.manual_seed(seed)
+        return [seed]
+
+    def reset(self, seed: int | None = None, **kwargs):
+        if seed is not None:
+            self.seed(seed)
+        self.state, obs = self.functional.reset(self.params, self.generator, 1)
+        return obs[0].cpu().numpy(), {}
+
+    def step(self, action):
+        action = torch.as_tensor(action, dtype=torch.int64, device=self.device).reshape(1)
+        out = self.functional.step(self.params, self.state, action, self.generator)
+        self.state = out.state
+        return (out.obs[0].cpu().numpy(), float(out.reward[0]), bool(out.terminated[0]),
+                bool(out.truncated[0]), {})
+
+    def close(self):
+        pass
+
+    def fork(self) -> "EnvHandle":
+        new = EnvHandle.__new__(EnvHandle)
+        new.__dict__.update(self.__dict__)
+        new.generator = torch.Generator(device=self.device)
+        new.generator.set_state(self.generator.get_state())
+        return new
+
+    def preprocess(self, name, args):
+        new = self.fork()
+        try:
+            new.functional = self.functional.preprocess(name, args)
+        except ValueError:
+            pass
+        return new

@@ -1,0 +1,149 @@
+"""Finite MDP environment with deterministic / stochastic / sparse transition
+modes, batch-first.
+
+Port of ``rl_agents_tpu/envs/finite_mdp.py``. The three transition encodings
+share one params NamedTuple; the mode is static structure:
+
+* ``deterministic``: transition[S, A] -> next-state index
+* ``stochastic``:    transition[S, A, S] -> probability
+* ``sparse``:        next[S, A, K] indices + transition[S, A, K] probabilities
+
+Stochastic modes draw with ``torch.multinomial`` on the caller's generator,
+so they agree with the JAX package in distribution only.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from rl_agents_torch.envs.base import Discrete, EnvHandle, EnvSpec, FunctionalEnv, StepOut
+from rl_agents_torch.utils.device import resolve_device
+
+
+class MDPParams(NamedTuple):
+    transition: Any   # [S,A] i64 / [S,A,S] f32 / [S,A,K] f32
+    reward: Any       # [S,A] f32
+    terminal: Any     # [S] bool
+    next: Any         # [S,A,K] i64 (sparse mode only; else scalar 0)
+    initial_state: Any  # [] i64
+
+
+class MDPState(NamedTuple):
+    s: Any     # [B] i64 current state index
+    t: Any     # [B] i64 step counter
+    done: Any  # [B] bool
+
+
+class FiniteMDPEnv(FunctionalEnv):
+    def __init__(self, num_states: int, num_actions: int, mode: str = "deterministic",
+                 max_episode_steps: int = 100):
+        if mode not in ("deterministic", "stochastic", "sparse"):
+            raise ValueError(f"Unknown mode {mode}")
+        self.num_states = num_states
+        self.num_actions = num_actions
+        self.mode = mode
+        self.max_episode_steps = max_episode_steps
+        self.spec = EnvSpec("finite-mdp", max_episode_steps)
+
+    @property
+    def action_space(self):
+        return Discrete(self.num_actions)
+
+    @property
+    def observation_space(self):
+        return Discrete(self.num_states)
+
+    def default_params(self, device="cuda") -> MDPParams:
+        S, A = self.num_states, self.num_actions
+        if self.mode == "deterministic":
+            transition = torch.zeros((S, A), dtype=torch.int64, device=device)
+        else:
+            transition = torch.full((S, A, S), 1.0 / S, dtype=torch.float32, device=device)
+        return MDPParams(
+            transition=transition,
+            reward=torch.zeros((S, A), dtype=torch.float32, device=device),
+            terminal=torch.zeros((S,), dtype=torch.bool, device=device),
+            next=torch.zeros((), dtype=torch.int64, device=device),
+            initial_state=torch.zeros((), dtype=torch.int64, device=device),
+        )
+
+    def reset(self, params: MDPParams, generator, batch: int = 1):
+        device = params.reward.device
+        state = MDPState(s=params.initial_state.expand(batch).clone(),
+                         t=torch.zeros(batch, dtype=torch.int64, device=device),
+                         done=torch.zeros(batch, dtype=torch.bool, device=device))
+        return state, state.s
+
+    def observe(self, params, state: MDPState):
+        return state.s
+
+    def next_state(self, params: MDPParams, s, action, generator):
+        if self.mode == "deterministic":
+            return params.transition[s, action]
+        k = torch.multinomial(params.transition[s, action], 1, generator=generator).squeeze(1)
+        if self.mode == "stochastic":
+            return k
+        return params.next[s, action, k]
+
+    def step(self, params: MDPParams, state: MDPState, action, generator=None) -> StepOut:
+        reward = torch.where(state.done, 0.0, params.reward[state.s, action])
+        s_next = torch.where(state.done, state.s,
+                             self.next_state(params, state.s, action, generator))
+        t = state.t + 1
+        terminated = params.terminal[s_next] | state.done
+        truncated = t >= self.max_episode_steps
+        new_state = MDPState(s=s_next, t=t, done=terminated)
+        return StepOut(new_state, s_next, reward, terminated, truncated, {})
+
+
+def params_from_config(config: dict, device="cuda") -> tuple[FiniteMDPEnv, MDPParams]:
+    device = resolve_device(device)
+    mode = config.get("mode", "deterministic")
+    transition = np.asarray(config["transition"])
+    reward = np.asarray(config["reward"], dtype=np.float32)
+    S, A = reward.shape
+    # clamp to S states: the reference corpus's env_bandit.json declares one
+    # state but a per-action-length terminal list
+    terminal_cfg = np.asarray(config.get("terminal", np.zeros(S)), dtype=bool).reshape(-1)
+    terminal = np.zeros(S, bool)
+    terminal[:min(S, terminal_cfg.shape[0])] = terminal_cfg[:S]
+    # the reference corpus spells the horizon "max_steps"
+    max_steps = config.get("max_episode_steps", config.get("max_steps", 100))
+    env = FiniteMDPEnv(S, A, mode=mode, max_episode_steps=max_steps)
+    if mode == "deterministic":
+        transition = transition.astype(np.int64)
+        nxt = np.zeros((), np.int64)
+    elif mode == "stochastic":
+        transition = transition.astype(np.float32)
+        nxt = np.zeros((), np.int64)
+    else:
+        transition = transition.astype(np.float32)
+        nxt = np.asarray(config["next"], dtype=np.int64)
+    params = MDPParams(
+        transition=torch.as_tensor(transition, device=device),
+        reward=torch.as_tensor(reward, device=device),
+        terminal=torch.as_tensor(terminal, device=device),
+        next=torch.as_tensor(nxt, device=device),
+        initial_state=torch.tensor(int(config.get("initial_state", 0)), dtype=torch.int64,
+                                   device=device),
+    )
+    return env, params
+
+
+def make(config: dict | None = None, device="cuda") -> EnvHandle:
+    config = dict(config or {})
+    if "transition" in config:
+        env, params = params_from_config(config, device="cpu")
+    elif config.get("generator") == "garnet":
+        raise NotImplementedError("garnet finite MDPs are not yet ported to rl_agents_torch")
+    else:
+        # default small loop MDP (reference scripts/configs/FiniteMDPEnv/env_loop.json shape)
+        env, params = params_from_config({
+            "mode": "deterministic",
+            "transition": [[0, 1, 2], [0, 3, 2], [0, 1, 3], [3, 1, 2]],
+            "reward": [[0, 1, 0.9], [0, 0, 0.9], [0, 1, 0], [0, 1, 0.9]],
+            "terminal": [0, 0, 0, 0],
+        }, device="cpu")
+    return EnvHandle(env, params, config, device=device)

@@ -1,0 +1,172 @@
+"""Batched KL-UCB/LCB solve: the CUDA kernel ``csrc/kl_bound.cu`` and its
+plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``rl_agents_tpu/ops/pallas_kl.py::_kl_bound_kernel``
+(launched by ``kl_bound_pallas``), which is a drop-in for
+``utils/math.py::kl_upper_bound``: with ``iters=NEWTON_MAX_ITERATIONS`` the
+per-element freeze reproduces that solver's per-element stop, so the OLOP
+planner calls this in its place.
+
+On an H100 the kernel moves 16 bytes per element (three f32 inputs read, one
+written) and runs a few Newton trips per element in registers; at large sizes
+it is bound by memory bytes, at the planner's 4096 trees by launch latency.
+One thread per element, a grid-stride loop, all trips in registers, and a
+thread stops once its element froze (see the note in the CUDA source).
+
+``kl_bound`` launches the kernel on a CUDA tensor, or raises; on a CPU tensor
+it runs ``kl_bound_torch``. There is no fallback between the two. The shared
+library is built from the repository's source with ``nvcc`` at first use into
+``rl_agents_torch/_build/``, keyed on a hash of the source and flags.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from rl_agents_torch.utils.device import resolve_device
+from rl_agents_torch.utils.math import (
+    _bounded_newton_step,
+    bernoulli_kullback_leibler,
+    d_bernoulli_kullback_leibler_dq,
+)
+
+_PACKAGE = Path(__file__).resolve().parent.parent
+SOURCE = _PACKAGE / "csrc" / "kl_bound.cu"
+BUILD_DIR = _PACKAGE / "_build"
+# no --use_fast_math: logf, division, inf and nan keep IEEE semantics;
+# --fmad=false: no contraction into FMA, each op rounds like the plain version
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_library = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the kl_bound kernel cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> Path:
+    """Build the kernel's shared library if it is not built yet; return its
+    path. The compiler's output (``-Xptxas -v``: registers, spills) is kept
+    beside it as ``<library>.log``. A failed build raises with that output."""
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"kl_bound_{digest}.so"
+    if lib_path.is_file():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    lib_path.with_suffix(".so.log").write_text(log)
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def _load():
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.kl_bound_launch.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.kl_bound_launch.restype = ctypes.c_int
+        _library = lib
+    return _library
+
+
+def _newton(_sum, count, threshold, lower: bool, iters: int, eps: float):
+    """The solve in plain tensor ops; returns the bound and each element's
+    number of Newton trips (the trip that froze it included)."""
+    safe = torch.clamp(count, min=1.0)
+    mu = _sum / safe
+    max_div = threshold / safe
+    a = torch.zeros_like(mu) if lower else mu
+    b = mu if lower else torch.ones_like(mu)
+    x = (a + b) / 2
+    frozen = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
+    trips = torch.zeros(mu.shape, dtype=torch.int64, device=mu.device)
+    for _ in range(iters):
+        f_x = bernoulli_kullback_leibler(mu, x) - max_div
+        df_x = d_bernoulli_kullback_leibler_dq(mu, x)
+        x_next = _bounded_newton_step(x, f_x, df_x, a, b)
+        trips += ~frozen
+        newly = torch.abs(x_next - x) <= eps
+        x = torch.where(frozen, x, x_next)
+        frozen = frozen | newly
+        if bool(frozen.all()):  # frozen elements never move again
+            break
+    x = torch.minimum(torch.maximum(x, a), b)
+    x = torch.where(a == b, a, x)
+    return torch.where(count == 0, 0.0 if lower else 1.0, x), trips
+
+
+def kl_bound_torch(_sum, count, threshold, lower: bool = False, iters: int = 24,
+                   eps: float = 1e-2) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: same trips, freeze rule and edge
+    cases, on f32 tensors of one broadcast shape."""
+    return _newton(_sum, count, threshold, lower, iters, eps)[0]
+
+
+def kl_bound_trips(_sum, count, threshold, lower: bool = False, iters: int = 24,
+                   eps: float = 1e-2) -> torch.Tensor:
+    """Newton trips each element takes: the data-dependent work of a launch."""
+    return _newton(_sum, count, threshold, lower, iters, eps)[1]
+
+
+def _as_input(value, device: torch.device) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        if value.device != device:
+            raise ValueError(f"kl_bound: input on {value.device}, expected {device}")
+        return value.to(torch.float32)
+    return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
+def kl_bound(_sum, count, threshold, lower: bool = False, iters: int = 24,
+             eps: float = 1e-2, device="cuda") -> torch.Tensor:
+    """KL-UCB (or LCB with ``lower=True``) of empirical Bernoulli means.
+
+    Inputs broadcast against each other and are taken as float32. Tensors
+    must already lie on ``device``; other values are placed there. On a CUDA
+    device this launches the kernel on the current stream (and counts the
+    launch in ``kl_bound.launches``) or raises; on the CPU it runs
+    ``kl_bound_torch``.
+    """
+    device = resolve_device(device)
+    s, n, t = torch.broadcast_tensors(*(_as_input(v, device) for v in (_sum, count, threshold)))
+    if device.type == "cpu":
+        return kl_bound_torch(s, n, t, lower=lower, iters=iters, eps=eps)
+    if device.type != "cuda":
+        raise ValueError(f"kl_bound: unsupported device {device}")
+    s, n, t = s.contiguous(), n.contiguous(), t.contiguous()
+    out = torch.empty(s.shape, dtype=torch.float32, device=s.device)
+    if out.numel() == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        err = lib.kl_bound_launch(s.data_ptr(), n.data_ptr(), t.data_ptr(), out.data_ptr(),
+                                  out.numel(), int(lower), int(iters), float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"kl_bound kernel launch failed with CUDA error {err}")
+    kl_bound.launches += 1
+    return out
+
+
+kl_bound.launches = 0

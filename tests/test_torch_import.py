@@ -1,0 +1,93 @@
+"""The PyTorch port stands alone: no JAX anywhere in it, imports without JAX,
+and keeps the CPU path of the KL kernel wrapper away from the CUDA build."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "rl_agents_tpu"}
+PORT_FILES = sorted(p.relative_to(REPO).as_posix()
+                    for p in (REPO / "rl_agents_torch").rglob("*.py")) + ["chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("relpath", PORT_FILES)
+def test_port_module_imports_no_jax(relpath):
+    found = set(_imported_roots(REPO / relpath)) & FORBIDDEN
+    assert not found, f"{relpath} imports {sorted(found)}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'rl_agents_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil, rl_agents_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(rl_agents_torch.__path__, 'rl_agents_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15
+
+
+def test_kl_bound_on_cpu_never_touches_the_build(monkeypatch):
+    from rl_agents_torch.ops import kl_bound as mod
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the CPU path reached the CUDA build")
+
+    monkeypatch.setattr(mod, "build", forbidden)
+    monkeypatch.setattr(mod, "_load", forbidden)
+    monkeypatch.setattr(mod.subprocess, "run", forbidden)
+    before = mod.kl_bound.launches
+    out = mod.kl_bound(torch.tensor([0.5, 2.0]), torch.tensor([1.0, 4.0]),
+                       torch.tensor(np.log(10.0), dtype=torch.float32), device="cpu")
+    assert out.device.type == "cpu" and out.shape == (2,)
+    assert mod.kl_bound.launches == before
+
+
+def test_kl_bound_refuses_tensors_on_another_device():
+    from rl_agents_torch.ops.kl_bound import kl_bound
+
+    with pytest.raises(ValueError, match="expected cpu"):
+        kl_bound(torch.zeros(3, device="meta"), 1.0, 1.0, device="cpu")
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from rl_agents_torch.agents.tree_search.batch import olop_plan_batch
+    from rl_agents_torch.envs.cartpole import CartPoleEnv
+    from rl_agents_torch.factory import load_agent, load_environment
+    from rl_agents_torch.ops.kl_bound import kl_bound
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_environment({"id": "cartpole"})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kl_bound(0.5, 1.0, 1.0)
+    env = load_environment({"id": "cartpole"}, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_agent({"__class__": "OLOPAgent", "budget": 10}, env)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        olop_plan_batch(CartPoleEnv(), env.params, env.state, num_actions=2, episodes=1,
+                        horizon=1, gamma=0.9, threshold_coeff=4.0)
