@@ -10,10 +10,10 @@ reward upper confidence bounds, then backs the sequence B-values
 Where the JAX package vmaps a single-tree program, this one carries a
 leading tree axis on every arena field and indexes rows directly with
 ``(arange(B), node)``; the one-hot masked access of the JAX package exists
-only for the TPU. The KL-UCB of every visited node is one ``kl_bound`` call
-over ``[B]`` per (episode, depth) step: on a CUDA device that is the
-hand-written kernel. Nothing inside the episode loop reads a value back to
-the host.
+only for the TPU. The KL-UCB of every node an episode visited is one
+``kl_bound_indexed_`` call over that episode's path ``[H, B]``, after its
+descent: on a CUDA device that is one launch of the hand-written kernel per
+episode. Nothing inside the episode loop reads a value back to the host.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch
 
 from rl_agents_torch.agents.tree_search.common import AbstractTreeSearchAgent, allocation
 from rl_agents_torch.envs.base import FunctionalEnv, params_to
-from rl_agents_torch.ops.kl_bound import kl_bound
+from rl_agents_torch.ops.kl_bound import kl_bound_indexed_
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS
 
@@ -94,6 +94,7 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
         dtype=f32, device=device)
     gamma = torch.tensor(g32, device=device)
     rows = torch.arange(B, device=device)
+    path_rows = rows.expand(H, B)
     offsets = torch.arange(A, device=device)
 
     def init_upper(depth):
@@ -115,16 +116,18 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
         else torch.full((E,), float(E), dtype=f32, device=device)
     thresholds = threshold_coeff * torch.log(time)
 
-    def reward_ucb(cum, cnt, threshold):
-        cnt = cnt.to(f32)
+    def update_reward_ucb(path, threshold):
+        """mu_ucb of the path's nodes ``[H, B]`` from their statistics."""
         if kl:
-            return kl_bound(cum, cnt, threshold, iters=NEWTON_MAX_ITERATIONS, eps=1e-2,
-                            device=device)
+            kl_bound_indexed_(mu_ucb, cum_reward, count, path, threshold,
+                              iters=NEWTON_MAX_ITERATIONS, eps=1e-2)
+            return
         # hoeffding: mu + sqrt(threshold / (2 n)) (the reference's hoeffding
         # branch is dormant, olop.py:153-158)
+        cnt = count[path_rows, path].to(f32)
         safe = torch.clamp(cnt, min=1.0)
-        bound = cum / safe + torch.sqrt(threshold / (2.0 * safe))
-        return torch.where(cnt == 0, torch.inf, bound)
+        bound = cum_reward[path_rows, path] / safe + torch.sqrt(threshold / (2.0 * safe))
+        mu_ucb[path_rows, path] = torch.where(cnt == 0, torch.inf, bound)
 
     if continuation_uniform:
         if random_actions is None:
@@ -142,6 +145,7 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
         """values[b, ch[b, a]] where ch >= 0, else ``fill``."""
         return torch.where(ch >= 0, values.gather(1, ch.clamp(min=0)), fill)
 
+    path = torch.empty((H, B), dtype=i64, device=device)
     for episode in range(E):
         node = torch.zeros(B, dtype=i64, device=device)
         state = states0
@@ -171,13 +175,17 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
             # node reward statistics update (reference: olop.py:132-142)
             child_done = out.terminated | done[rows, child]
             reward = torch.where(child_done, 0.0, out.reward.to(f32))
-            cum = cum_reward[rows, child] + reward
-            cnt = count[rows, child] + 1
-            cum_reward[rows, child] = cum
-            count[rows, child] = cnt
-            mu_ucb[rows, child] = reward_ucb(cum, cnt, thresholds[episode])
+            cum_reward[rows, child] = cum_reward[rows, child] + reward
+            count[rows, child] = count[rows, child] + 1
             done[rows, child] = child_done
+            path[h] = child
             node, state = child, out.state
+
+        # the reference updates mu_ucb at every step of the descent
+        # (olop.py:132-142); one update over the whole path after it is exact:
+        # mu_ucb is read only by the backup below, and depth grows by one a
+        # step, so the path visits each node once and its statistics are final
+        update_reward_ucb(path, thresholds[episode])
 
         # backup B-values to the root (reference: olop.py:182-193); a leaf
         # lies at depth <= H, so H + 1 trips reach every root

@@ -1,5 +1,5 @@
-"""Batched KL-UCB/LCB solve: the CUDA kernel ``csrc/kl_bound.cu`` and its
-plain PyTorch version.
+"""Batched KL-UCB/LCB solve: the CUDA kernels of ``csrc/kl_bound.cu`` and
+their plain PyTorch versions.
 
 Replaces the Pallas TPU kernel ``rl_agents_tpu/ops/pallas_kl.py::_kl_bound_kernel``
 (launched by ``kl_bound_pallas``), which is a drop-in for
@@ -7,14 +7,20 @@ Replaces the Pallas TPU kernel ``rl_agents_tpu/ops/pallas_kl.py::_kl_bound_kerne
 per-element freeze reproduces that solver's per-element stop, so the OLOP
 planner calls this in its place.
 
-On an H100 the kernel moves 16 bytes per element (three f32 inputs read, one
-written) and runs a few Newton trips per element in registers; at large sizes
-it is bound by memory bytes, at the planner's 4096 trees by launch latency.
-One thread per element, a grid-stride loop, all trips in registers, and a
-thread stops once its element froze (see the note in the CUDA source).
+Two launch forms share one device solve:
 
-``kl_bound`` launches the kernel on a CUDA tensor, or raises; on a CPU tensor
-it runs ``kl_bound_torch``. There is no fallback between the two. The shared
+- ``kl_bound``, dense: broadcastable f32 inputs, a new output. It moves 16
+  bytes per element and at large sizes is bound by memory bytes.
+- ``kl_bound_indexed_``, the planner's form: solves the nodes of one OLOP
+  episode's path ``nodes [H, B]`` inside a ``[B, N]`` tree arena and writes
+  them in place, one launch per episode. At the planner's 8 x 4096 nodes it
+  is bound by launch latency and by the longest Newton chain of a warp.
+
+One thread per element, all trips in registers, and a thread stops once its
+element froze (see the note in the CUDA source).
+
+Each wrapper launches its kernel on a CUDA tensor, or raises; on a CPU tensor
+it runs its plain version. There is no fallback between the two. The shared
 library is built from the repository's source with ``nvcc`` at first use into
 ``rl_agents_torch/_build/``, keyed on a hash of the source and flags.
 """
@@ -87,6 +93,9 @@ def _load():
         lib.kl_bound_launch.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         lib.kl_bound_launch.restype = ctypes.c_int
+        lib.kl_bound_indexed_launch.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.kl_bound_indexed_launch.restype = ctypes.c_int
         _library = lib
     return _library
 
@@ -170,3 +179,89 @@ def kl_bound(_sum, count, threshold, lower: bool = False, iters: int = 24,
 
 
 kl_bound.launches = 0
+
+
+def kl_bound_indexed_torch_(out, _sum, count, nodes, threshold, lower: bool = False,
+                            iters: int = 24, eps: float = 1e-2) -> torch.Tensor:
+    """Plain PyTorch version of the indexed kernel: gather the path's nodes,
+    solve them with ``kl_bound_torch``, scatter the bounds into ``out``. A
+    node outside ``[0, N)`` raises (``gather`` does not wrap negatives)."""
+    per_tree = nodes.t()
+    bounds = kl_bound_torch(_sum.gather(1, per_tree), count.gather(1, per_tree).to(torch.float32),
+                            threshold, lower=lower, iters=iters, eps=eps)
+    return out.scatter_(1, per_tree, bounds)
+
+
+_INDEXED_ARGS = (("out", torch.float32, 2), ("sum", torch.float32, 2),
+                 ("count", torch.int64, 2), ("nodes", torch.int64, 2),
+                 ("threshold", torch.float32, 0))
+
+
+def _check_indexed(out, _sum, count, nodes, threshold) -> torch.device:
+    args = (out, _sum, count, nodes, threshold)
+    for value, (name, dtype, dim) in zip(args, _INDEXED_ARGS):
+        if not isinstance(value, torch.Tensor):
+            raise TypeError(f"kl_bound_indexed_: {name} must be a tensor, got {type(value).__name__}")
+        if value.dtype != dtype or value.dim() != dim:
+            raise TypeError(f"kl_bound_indexed_: {name} must be {dim}-d {dtype}, "
+                            f"got {value.dim()}-d {value.dtype}")
+        if not value.is_contiguous():
+            raise ValueError(f"kl_bound_indexed_: {name} must be contiguous")
+    devices = {value.device for value in args}
+    if len(devices) != 1:
+        raise ValueError(f"kl_bound_indexed_: inputs on {sorted(map(str, devices))}, "
+                         "expected one device")
+    if _sum.shape != out.shape or count.shape != out.shape:
+        raise ValueError(f"kl_bound_indexed_: out, sum and count must share one [B, N] shape, "
+                         f"got {tuple(out.shape)}, {tuple(_sum.shape)}, {tuple(count.shape)}")
+    if nodes.shape[1] != out.shape[0]:
+        raise ValueError(f"kl_bound_indexed_: nodes must be [H, {out.shape[0]}], "
+                         f"got {tuple(nodes.shape)}")
+    return out.device
+
+
+def kl_bound_indexed_(out, _sum, count, nodes, threshold, lower: bool = False,
+                      iters: int = 24, eps: float = 1e-2) -> torch.Tensor:
+    """KL-UCB (or LCB with ``lower=True``) of the nodes of one planning
+    episode's path, written into ``out`` in place; returns ``out``.
+
+    ``out`` and ``sum`` are ``[B, N]`` float32 arenas, ``count`` is ``[B, N]``
+    int64, ``nodes`` is ``[H, B]`` int64 (row ``h`` holds the node at depth
+    ``h + 1`` of every tree) and ``threshold`` a 0-d float32 tensor, all
+    contiguous on one device. For every ``(h, b)`` the bound of
+    ``sum[b, nodes[h, b]] / count[b, nodes[h, b]]`` lands in
+    ``out[b, nodes[h, b]]``; other entries are left as they are. Nodes lie in
+    ``[0, N)``. The planner's nodes of one tree are distinct, one per depth; a
+    repeated node would be solved twice from the same inputs and get the same
+    value.
+
+    On a CUDA device this launches the kernel on the current stream (and
+    counts the launch in ``kl_bound_indexed_.launches``) or raises; a node
+    outside ``[0, N)`` stops the kernel with a device error, as an
+    out-of-range index does in PyTorch. On the CPU it runs
+    ``kl_bound_indexed_torch_``, which raises on such a node.
+    """
+    device = _check_indexed(out, _sum, count, nodes, threshold)
+    if device.type == "cpu":
+        return kl_bound_indexed_torch_(out, _sum, count, nodes, threshold, lower=lower,
+                                       iters=iters, eps=eps)
+    if device.type != "cuda":
+        raise ValueError(f"kl_bound_indexed_: unsupported device {device}")
+    if nodes.numel() == 0:
+        return out
+    if out.data_ptr() == _sum.data_ptr():  # the kernel takes them as __restrict__
+        raise ValueError("kl_bound_indexed_: out must not alias sum")
+    lib = _load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.kl_bound_indexed_launch(
+            _sum.data_ptr(), count.data_ptr(), nodes.data_ptr(), threshold.data_ptr(),
+            out.data_ptr(), out.shape[0], out.shape[1], nodes.numel(), int(lower), int(iters),
+            float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"kl_bound_indexed_ kernel launch failed with CUDA error {err}")
+    kl_bound_indexed_.launches += 1
+    return out
+
+
+kl_bound_indexed_.launches = 0
