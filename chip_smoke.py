@@ -10,20 +10,38 @@ non-zero without its final line:
    no CUDA device is an error;
 2. build the hand-written kernels from the repository's sources;
 3. hold each kernel against its plain PyTorch version on the card, and time
-   both: the KL bound's dense form ``kl_bound`` at n = 4096 and n = 2^24, and
-   its indexed form ``kl_bound_indexed_`` on a ``[4096, 369]`` arena at the
-   planner's path of 8 x 4096 nodes;
-4. the batch path at full width: ``olop_plan_batch`` on CartPole, 4096 trees,
-   23 episodes x horizon 8, gamma 0.95, one ``kl_bound_indexed_`` launch per
-   episode, checked against the same first 64 trees planned on the CPU with
-   the plain KL solve;
-5. the agent path through the user's entry points: ``load_environment`` /
-   ``load_agent`` / ``Evaluation.test`` for one CartPole episode on the card,
-   with every kernel launch counter set to 0 just before and read just after
-   (one ``kl_bound_indexed_`` launch per planning episode; the dense form is
-   not on this path);
-6. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the last
-   line.
+   both: the KL bound's dense form ``kl_bound`` at n = 4096 and n = 2^24 on
+   OLOP-like statistics and on the inputs that MDP-GapE plans passed to it
+   (recorded from the last episode of a 4096-tree plan and of a 1-tree plan
+   at the confidence 1.0 of ``mdp-gape.json``, and of a 4096-tree plan at the
+   agent's default confidence 0.9), and its indexed form
+   ``kl_bound_indexed_`` on a ``[4096, 369]`` arena at the planner's path of
+   8 x 4096 nodes;
+4. the OLOP batch path at full width: ``olop_plan_batch`` on CartPole, 4096
+   trees, 23 episodes x horizon 8, gamma 0.95, one ``kl_bound_indexed_``
+   launch per episode, checked against the same first 64 trees planned on the
+   CPU with the plain KL solve;
+5. the OLOP agent path through the user's entry points: ``load_environment`` /
+   ``load_agent`` / ``Evaluation.test`` for one CartPole episode on the card
+   (one ``kl_bound_indexed_`` launch per planning episode);
+6. the MCTS batch path at full width: ``mcts_plan_batch`` on CartPole, 4096
+   trees, 23 x 8, gamma 0.95, temperature 40, its first 64 trees checked
+   against the CPU plan under the same noise; it launches no kernel;
+7. the MCTS agent path: ``CartPoleEnv/MCTSAgent.json`` for one episode;
+8. the MDP-GapE batch path: ``mdp_gape_plan_batch``, 4096 trees on the garnet
+   MDP of ``FiniteMDPEnv/env_garnet.json`` at the sizes of
+   ``FiniteMDPEnv/agents/mdp-gape.json`` (confidence 1.0) and again at the
+   agent's default confidence 0.9, two dense ``kl_bound`` launches per
+   (episode, depth) step, the Newton trips of its chance backups counted,
+   and the first 64 trees of a plan on a deterministic garnet checked against
+   the CPU plan under the same noise;
+9. the MDP-GapE agent path: ``mdp-gape.json`` on ``env_garnet.json`` for one
+   episode;
+10. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
+    last line.
+
+Every path is driven with every kernel launch counter set to 0 just before
+and read just after.
 """
 from __future__ import annotations
 
@@ -55,6 +73,22 @@ DENSE_LARGE = 1 << 24  # the dense form where bytes should bind
 CPU_SUBSET = 64
 AGENT_CONFIG = {"__class__": "OLOPAgent", "budget": 184, "gamma": GAMMA}
 AGENT_MAX_STEPS = 30
+CONFIGS = REPO / "scripts" / "configs"
+MCTS_TEMPERATURE = 40.0
+# MDP-GapE at the sizes of FiniteMDPEnv/agents/mdp-gape.json: budget 100 at
+# gamma 0.7 is 20 episodes x horizon 5, two next-state slots, confidence 1.0,
+# which gives an infinite reward threshold and a KL solve of one trip. Every
+# MDP-GapE config of the corpus sets confidence 1; the agent's own default is
+# 0.9, which makes the solve iterate, so the batch path is driven at both
+GAPE = dict(num_actions=4, episodes=20, horizon=5, gamma=0.7, accuracy=0.0, confidence=1.0,
+            transition_threshold_coeff=0.1, width=2)
+GAPE_DEFAULT = dict(GAPE, confidence=0.9)
+GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE),
+              ("agent default, confidence 0.9", GAPE_DEFAULT))
+GAPE_STATES = 16
+# the planner runs while ``episode <= episodes``: episodes + 1 episodes of
+# horizon steps, an upper and a lower bound each
+GAPE_KL_LAUNCHES = 2 * (GAPE["episodes"] + 1) * GAPE["horizon"]
 
 
 def phase(title: str):
@@ -77,6 +111,38 @@ def card_line() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True)
     return proc.stdout.strip().splitlines()[0]
+
+
+def reset_launches():
+    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_indexed_
+
+    kl_bound.launches = kl_bound_indexed_.launches = 0
+
+
+def read_launches() -> dict:
+    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_indexed_
+
+    return {"kl_bound": kl_bound.launches, "kl_bound_indexed_": kl_bound_indexed_.launches}
+
+
+def expect_launches(path: str, got: dict, kl_bound: int, kl_bound_indexed_: int):
+    want = {"kl_bound": kl_bound, "kl_bound_indexed_": kl_bound_indexed_}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+
+
+def timed_plans(plan, count: int = 5) -> list:
+    """Milliseconds of each of ``count`` plans, by CUDA events."""
+    times = []
+    for _ in range(count):
+        start_ev = torch.cuda.Event(enable_timing=True)
+        end_ev = torch.cuda.Event(enable_timing=True)
+        start_ev.record()
+        plan()
+        end_ev.record()
+        torch.cuda.synchronize()
+        times.append(start_ev.elapsed_time(end_ev))
+    return times
 
 
 def kl_inputs(n: int, rng: np.random.Generator, device):
@@ -134,51 +200,119 @@ def kl_bound_of(bytes_moved: int, _sum, count, threshold, lower: bool, iters: in
             lane_use)
 
 
+def garnet_case(dev, branching: int):
+    """The garnet MDP of ``FiniteMDPEnv/env_garnet.json`` (``branching`` 2; 1
+    makes it deterministic) on ``dev`` and ``TREES`` start states from a seed."""
+    from rl_agents_torch.envs.base import params_to
+    from rl_agents_torch.envs.finite_mdp import MDPState, garnet
+
+    config = json.loads((CONFIGS / "FiniteMDPEnv" / "env_garnet.json").read_text())
+    env, params = garnet(torch.Generator().manual_seed(config["seed"]), config["num_states"],
+                         config["num_actions"], branching)
+    start = np.random.default_rng(3).integers(0, GAPE_STATES, TREES)
+
+    def states(device, n):
+        return MDPState(s=torch.tensor(start[:n], device=device),
+                        t=torch.zeros(n, dtype=torch.int64, device=device),
+                        done=torch.zeros(n, dtype=torch.bool, device=device))
+
+    return env, params_to(params, dev), states
+
+
+def gape_kl_calls(dev, kw: dict, trees: int) -> list:
+    """``[((sum, count, threshold), lower), ...]``: the inputs of the dense
+    launches of the last episode of one MDP-GapE plan of ``trees`` trees, as
+    the planner passed them (its highest counts), upper and lower in turn for
+    each depth."""
+    from rl_agents_torch.agents.tree_search import mdp_gape
+
+    env, params, states = garnet_case(dev, branching=2)
+    calls = []
+    inner = mdp_gape.kl_upper_bound
+
+    def recording(_sum, count, threshold, lower=False, **rest):
+        inputs = tuple(v.clone() for v in torch.broadcast_tensors(_sum, count, threshold))
+        calls.append((inputs, lower))
+        return inner(_sum, count, threshold, lower=lower, **rest)
+
+    mdp_gape.kl_upper_bound = recording
+    try:
+        mdp_gape.mdp_gape_plan(env, params, states(dev, trees),
+                               torch.Generator(device=dev).manual_seed(11), device=dev, **kw)
+    finally:
+        mdp_gape.kl_upper_bound = inner
+    if len(calls) != GAPE_KL_LAUNCHES:
+        raise AssertionError(f"an MDP-GapE plan made {len(calls)} KL calls, "
+                             f"expected {GAPE_KL_LAUNCHES}")
+    return calls[-2 * kw["horizon"]:]
+
+
+def time_dense(label: str, inputs, n: int, lower: bool, reps, dev) -> dict:
+    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_torch
+    from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS as ITERS
+
+    ms, call_ms, plain_ms = time_kernel(
+        lambda: kl_bound(*inputs, lower=lower, iters=ITERS, device=dev),
+        lambda: kl_bound_torch(*inputs, lower=lower, iters=ITERS), *reps)
+    # three f32 inputs read once, one f32 output written once
+    bound_ms, bound_by, ops, trips, lane_use = kl_bound_of(16 * n, *inputs, lower, ITERS)
+    print(f"kl_bound {label} n={n} lower={lower} iters={ITERS}: kernel {ms!r} ms on the device, "
+          f"{call_ms!r} ms per eager call, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
+          f"by {bound_by} ({16 * n} bytes, {ops} f32 ops over {trips} Newton trips, "
+          f"lane use {lane_use!r}), {bound_ms / ms!r} of the bound")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                lane_use=lane_use, trips=trips)
+
+
 def check_kl_bound(dev) -> dict:
-    """The dense form against its plain version at the planner's former
-    shape, a large odd size, 2^24 and the edge cases; timed at n = 4096 (the
-    per-depth shape of earlier slices) and n = 2^24 (bytes-bound)."""
+    """The dense form against its plain version on the inputs that MDP-GapE
+    plans passed to it (every launch of a plan's last episode: 4096 trees and
+    1 tree at the config's confidence 1.0, 4096 trees at the agent's default
+    0.9), at OLOP's former per-depth shape, a large odd size, 2^24 and the
+    edge cases; timed on the first-depth launches of those plans, at n = 4096
+    on OLOP-like statistics and at n = 2^24 (bytes-bound)."""
     from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_torch
     from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS
 
     rng = np.random.default_rng(0)
     worst = 0.0
-    cases = [(n, kl_inputs(n, rng, dev)) for n in (TREES, 1_000_003, DENSE_LARGE)]
-    cases.append((8, kl_edge_inputs(dev)))
-    for n, inputs in cases:
-        for lower in (False, True):
+    gape = {"config": gape_kl_calls(dev, GAPE, TREES), "config_n1": gape_kl_calls(dev, GAPE, 1),
+            "default": gape_kl_calls(dev, GAPE_DEFAULT, TREES)}
+    cases = [(f"{n} OLOP-like", kl_inputs(n, rng, dev), (False, True))
+             for n in (TREES, 1_000_003, DENSE_LARGE)]
+    cases.append(("8 edge cases", kl_edge_inputs(dev), (False, True)))
+    cases += [(f"{inputs[0].numel()} MDP-GapE {tag} launch {i}", inputs, (lower,))
+              for tag, calls in gape.items() for i, (inputs, lower) in enumerate(calls)]
+    for label, inputs, sides in cases:
+        for lower in sides:
             for iters in (24, NEWTON_MAX_ITERATIONS):
                 got = kl_bound(*inputs, lower=lower, iters=iters, device=dev)
                 want = kl_bound_torch(*inputs, lower=lower, iters=iters)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
-                print(f"kl_bound n={n} lower={lower} iters={iters}: max|kernel - plain| = {err!r}")
+                print(f"kl_bound n={label} lower={lower} iters={iters}: "
+                      f"max|kernel - plain| = {err!r}")
                 if not err <= KL_TOLERANCE:
                     raise AssertionError(f"kl_bound disagrees with its plain version: {err!r}")
                 worst = max(worst, err)
     del cases
 
+    # the first-depth launches of the recorded episode: upper, then lower
+    reps = (100, 20, 500, 20)
     timed = {}
-    for n, reps in ((TREES, (100, 20, 500, 20)), (DENSE_LARGE, (10, 5, 20, 3))):
-        inputs = kl_inputs(n, rng, dev)
-        ms, call_ms, plain_ms = time_kernel(
-            lambda: kl_bound(*inputs, iters=NEWTON_MAX_ITERATIONS, device=dev),
-            lambda: kl_bound_torch(*inputs, iters=NEWTON_MAX_ITERATIONS), *reps)
-        # three f32 inputs read once, one f32 output written once
-        bound_ms, bound_by, ops, trips, lane_use = kl_bound_of(16 * n, *inputs, False,
-                                                               NEWTON_MAX_ITERATIONS)
-        print(f"kl_bound n={n} iters={NEWTON_MAX_ITERATIONS}: kernel {ms!r} ms on the device, "
-              f"{call_ms!r} ms per eager call, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
-              f"by {bound_by} ({16 * n} bytes, {ops} f32 ops over {trips} Newton trips, "
-              f"lane use {lane_use!r}), {bound_ms / ms!r} of the bound")
-        timed[n] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
-        del inputs
-    large = {f"{key}_n{DENSE_LARGE}": value for key, value in timed[DENSE_LARGE].items()}
+    for tag, label in (("config", "MDP-GapE confidence 1.0"), ("config_n1", "MDP-GapE confidence 1.0"),
+                       ("default", "MDP-GapE confidence 0.9")):
+        for inputs, lower in gape[tag][:2]:
+            timed[f"gape_{tag}_{'lower' if lower else 'upper'}"] = time_dense(
+                label, inputs, inputs[0].numel(), lower, reps, dev)
+    main = timed.pop("gape_config_upper")
+    timed["olop_like"] = time_dense("OLOP-like", kl_inputs(TREES, rng, dev), TREES, False, reps, dev)
+    timed[f"n{DENSE_LARGE}"] = time_dense("OLOP-like", kl_inputs(DENSE_LARGE, rng, dev),
+                                          DENSE_LARGE, False, (10, 5, 20, 3), dev)
+    others = {f"{key}_{tag}": value for tag, one in timed.items() for key, value in one.items()}
     return {"name": "kl_bound", "route": "cuda", "source": "rl_agents_torch/csrc/kl_bound.cu",
             "replaces": "rl_agents_tpu/ops/pallas_kl.py:40", "launches": None,
-            "max_abs_err": worst, **timed[TREES], "library_ms": None, "on_main_path": False,
-            **large}
+            "max_abs_err": worst, **main, "library_ms": None, "on_main_path": True, **others}
 
 
 def kl_arena(rng: np.random.Generator, device):
@@ -250,13 +384,17 @@ def check_kl_bound_indexed(dev) -> dict:
             "bound_by": bound_by, "library_ms": None, "call_ms": call_ms, "on_main_path": True}
 
 
-def profile_plan(plan):
+def profile_plan(plan, host_events: bool = True) -> dict:
     """Device busy share of one plan and its costliest device kernels, from
-    torch.profiler's CUDA activity."""
+    torch.profiler's CUDA activity. ``host_events=False`` leaves the host's
+    operators out of the trace, for a plan of several hundred thousand
+    launches. Returns the device kernels and the KL kernel's milliseconds and
+    launches; a trace without device time is an error."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_events else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         started = time.perf_counter()
         plan()
         torch.cuda.synchronize()
@@ -268,8 +406,7 @@ def profile_plan(plan):
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     if busy_us <= 0:
-        print("profiled plan: the profiler recorded no device time (device busy share not measured)")
-        return
+        raise AssertionError("profiled plan: the profiler recorded no device time")
     print(f"profiled plan: {wall_us / 1e3!r} ms wall, device busy {busy_us / 1e3!r} ms "
           f"({busy_us / wall_us!r} of wall), {launches} device kernels")
     kl = [e for e in kernels if "kl_bound" in e.key]
@@ -277,96 +414,234 @@ def profile_plan(plan):
           f"{sum(e.count for e in kl)} launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / 1e3!r} ms in {e.count} x {e.key[:90]}")
+    return {"kernels": launches, "kl_ms": sum(e.self_device_time_total for e in kl) / 1e3,
+            "kl_launches": sum(e.count for e in kl)}
 
 
-def check_batch_path(dev):
-    from rl_agents_torch.agents.tree_search.batch import olop_plan_batch
-    from rl_agents_torch.convert import tree_to_numpy
+def cartpole_case(dev):
+    """CartPole and ``TREES`` start states, uniform in +-0.05, from a seed."""
     from rl_agents_torch.envs.cartpole import CartPoleEnv, CartPoleState
-    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_indexed_
 
     env = CartPoleEnv(max_episode_steps=200)
-    rng = np.random.default_rng(1)
-    start = rng.uniform(-0.05, 0.05, (4, TREES)).astype(np.float32)
+    start = np.random.default_rng(1).uniform(-0.05, 0.05, (4, TREES)).astype(np.float32)
 
     def states(device, n):
         return CartPoleState(*(torch.tensor(v[:n], device=device) for v in start),
                              t=torch.zeros(n, dtype=torch.int64, device=device),
                              done=torch.zeros(n, dtype=torch.bool, device=device))
 
-    kw = dict(num_actions=2, episodes=EPISODES, horizon=HORIZON, gamma=GAMMA, threshold_coeff=4.0)
-    params, states0 = env.default_params(dev), states(dev, TREES)
-    actions, lengths, tree = olop_plan_batch(env, params, states0, device=dev, **kw)  # warm-up
-    times = []
-    kl_bound.launches = kl_bound_indexed_.launches = 0
-    for _ in range(5):
-        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start_ev.record()
-        actions, lengths, tree = olop_plan_batch(env, params, states0, device=dev, **kw)
-        end_ev.record()
-        torch.cuda.synchronize()
-        times.append(start_ev.elapsed_time(end_ev))
-    launches = kl_bound_indexed_.launches
-    if launches != 5 * EPISODES or kl_bound.launches != 0:
-        raise AssertionError(f"{launches} kl_bound_indexed_ and {kl_bound.launches} kl_bound "
-                             f"launches in 5 plans, expected {5 * EPISODES} and 0")
+    return env, env.default_params(dev), states
+
+
+def report_plans(name: str, times: list, work: int, unit: str) -> float:
     ms = statistics.median(times)
-    env_steps = TREES * EPISODES * HORIZON
-    print(f"olop_plan_batch B={TREES} episodes={EPISODES} horizon={HORIZON}: median {ms!r} ms "
-          f"per plan over {[round(t, 3) for t in times]}, {env_steps / (ms / 1e3)!r} env-steps/s, "
-          f"{launches // 5} kl_bound_indexed_ launches per plan")
+    print(f"{name}: median {ms!r} ms per plan over {[round(t, 3) for t in times]}, "
+          f"{work / (ms / 1e3)!r} {unit}/s")
+    return ms
 
-    profile_plan(lambda: olop_plan_batch(env, params, states0, device=dev, **kw))
 
-    actions_np, lengths_np = actions.cpu().numpy(), lengths.cpu().numpy()
-    if not (((actions_np >= 0) & (actions_np < 2)) | (actions_np == -1)).all() \
-            or not ((lengths_np >= 1) & (lengths_np <= HORIZON)).all() \
-            or not torch.isfinite(tree.value_upper).all():
+def same_on_cpu(name: str, got: dict, want: dict, exact: tuple, close: tuple):
+    """The first ``CPU_SUBSET`` trees of a plan on the card against the same
+    trees planned on the CPU: ``exact`` fields equal, ``close`` within
+    ``KL_TOLERANCE``."""
+    for field in exact:
+        if not np.array_equal(got[field][:CPU_SUBSET], want[field]):
+            raise AssertionError(f"{name}: {field} differs from the CPU plan")
+    errors = {field: float(np.abs(got[field][:CPU_SUBSET] - want[field]).max()) for field in close}
+    if not all(err <= KL_TOLERANCE for err in errors.values()):
+        raise AssertionError(f"{name}: differs from the CPU plan by {errors}")
+    print(f"{name}: first {CPU_SUBSET} trees equal to the CPU plan ({', '.join(exact)}); "
+          f"max|diff| {errors}")
+
+
+def plan_fields(actions, lengths, tree) -> dict:
+    from rl_agents_torch.convert import tree_to_numpy
+
+    return dict(tree_to_numpy(tree)._asdict(), actions=actions.cpu().numpy(),
+                lengths=lengths.cpu().numpy())
+
+
+def check_olop_batch_path(dev) -> dict:
+    from rl_agents_torch.agents.tree_search.batch import olop_plan_batch
+
+    env, params, states = cartpole_case(dev)
+    kw = dict(num_actions=2, episodes=EPISODES, horizon=HORIZON, gamma=GAMMA, threshold_coeff=4.0)
+    states0 = states(dev, TREES)
+    plan = lambda: olop_plan_batch(env, params, states0, device=dev, **kw)
+    plan()  # warm-up
+    reset_launches()
+    times = timed_plans(plan)
+    launches = read_launches()
+    expect_launches("OLOP batch path, 5 plans", launches, 0, 5 * EPISODES)
+    report_plans(f"olop_plan_batch B={TREES} episodes={EPISODES} horizon={HORIZON}", times,
+                 TREES * EPISODES * HORIZON, "env-steps")
+    print(f"  {launches['kl_bound_indexed_'] // 5} kl_bound_indexed_ launches per plan")
+    profile_plan(plan)
+
+    got = plan_fields(*plan())
+    if not (((got["actions"] >= 0) & (got["actions"] < 2)) | (got["actions"] == -1)).all() \
+            or not ((got["lengths"] >= 1) & (got["lengths"] <= HORIZON)).all() \
+            or not np.isfinite(got["value_upper"]).all():
         raise AssertionError("batch plan produced invalid actions, lengths or bounds")
     cpu = torch.device("cpu")
-    ref_actions, ref_lengths, ref_tree = olop_plan_batch(
-        env, env.default_params(cpu), states(cpu, CPU_SUBSET), device=cpu, **kw)
-    sub = tree_to_numpy(tree)
-    ref = tree_to_numpy(ref_tree)
-    if not (np.array_equal(actions_np[:CPU_SUBSET], ref_actions.numpy())
-            and np.array_equal(lengths_np[:CPU_SUBSET], ref_lengths.numpy())
-            and np.array_equal(sub.parent[:CPU_SUBSET], ref.parent)
-            and np.array_equal(sub.count[:CPU_SUBSET], ref.count)):
-        raise AssertionError("the GPU batch plan differs from its CPU subset")
-    value_err = float(np.abs(sub.value_upper[:CPU_SUBSET] - ref.value_upper).max())
-    if not value_err <= KL_TOLERANCE:
-        raise AssertionError(f"value_upper differs from the CPU subset by {value_err!r}")
-    print(f"first {CPU_SUBSET} trees equal to the CPU plan (actions, lengths, parents, counts); "
-          f"max|value_upper diff| = {value_err!r}")
+    want = plan_fields(*olop_plan_batch(env, env.default_params(cpu), states(cpu, CPU_SUBSET),
+                                        device=cpu, **kw))
+    same_on_cpu("olop_plan_batch", got, want, ("actions", "lengths", "parent", "count"),
+                ("value_upper",))
+    return launches
 
 
-def check_agent_path(dev) -> dict:
-    """Launches of each KL wrapper in one agent episode, by name."""
+def check_mcts_batch_path(dev) -> dict:
+    """``mcts_plan_batch`` at the JAX bench's headline sizes; it launches no
+    hand-written kernel (the JAX package computes MCTS outside any Pallas
+    kernel too)."""
+    from rl_agents_torch.agents.tree_search.batch import mcts_plan_batch
+    from rl_agents_torch.agents.tree_search.mcts import gumbel
+
+    env, params, states = cartpole_case(dev)
+    probs = torch.ones(2) / 2
+    kw = dict(num_actions=2, episodes=EPISODES, horizon=HORIZON, gamma=GAMMA,
+              temperature=MCTS_TEMPERATURE)
+    states0 = states(dev, TREES)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    plan = lambda: mcts_plan_batch(env, params, states0, generator, probs, probs, device=dev, **kw)
+    plan()  # warm-up
+    reset_launches()
+    times = timed_plans(plan)
+    launches = read_launches()
+    expect_launches("MCTS batch path, 5 plans", launches, 0, 0)
+    report_plans(f"mcts_plan_batch B={TREES} episodes={EPISODES} horizon={HORIZON} "
+                 f"temperature={MCTS_TEMPERATURE}", times, TREES * EPISODES * HORIZON, "env-steps")
+    profile_plan(plan)
+
+    # the same noise on both devices: drawn once on the CPU
+    noise = gumbel((EPISODES, HORIZON, 2, 2, TREES), torch.Generator().manual_seed(5), "cpu")
+    got = plan_fields(*mcts_plan_batch(env, params, states0, None, probs, probs, noise=noise,
+                                       device=dev, **kw))
+    if not ((got["lengths"] >= 1) & (got["lengths"] <= HORIZON)).all() \
+            or not (got["count"][:, 0] == EPISODES).all() or not np.isfinite(got["value"]).all():
+        raise AssertionError("MCTS batch plan produced invalid lengths, root counts or values")
+    cpu = torch.device("cpu")
+    want = plan_fields(*mcts_plan_batch(
+        env, env.default_params(cpu), states(cpu, CPU_SUBSET), None, probs, probs,
+        noise=noise[..., :CPU_SUBSET], device=cpu, **kw))
+    same_on_cpu("mcts_plan_batch", got, want, ("actions", "lengths", "count", "parent"),
+                ("value",))
+    return launches
+
+
+def reset_newton():
+    from rl_agents_torch.utils.math import newton_iteration
+
+    newton_iteration.calls = newton_iteration.trips = 0
+
+
+def newton_line() -> str:
+    from rl_agents_torch.utils.math import newton_iteration as newton
+
+    return (f"{newton.calls} Newton solves of max_expectation_under_constraint, {newton.trips} "
+            f"trips ({newton.trips / max(newton.calls, 1)!r} per solve)")
+
+
+def check_gape_batch_path(dev) -> dict:
+    """``mdp_gape_plan_batch`` on the stochastic garnet at the config's
+    confidence and at the agent's default: timed, its KL launches counted and
+    their device time read from the profiler, the Newton trips of its chance
+    backups counted (as run, in blocks, and as needed, read back every trip);
+    then one plan of each on the deterministic garnet against the CPU under
+    the same noise. Returns the launches of the config's plans."""
+    from rl_agents_torch.agents.tree_search.batch import mdp_gape_plan_batch
+    from rl_agents_torch.agents.tree_search.mcts import gumbel
+    from rl_agents_torch.convert import tree_to_numpy
+    from rl_agents_torch.utils import math as port_math
+
+    steps = TREES * (GAPE["episodes"] + 1) * GAPE["horizon"]
+    cpu = torch.device("cpu")
+    noise = gumbel((GAPE["episodes"] + 1, GAPE["horizon"], TREES, GAPE["num_actions"]),
+                   torch.Generator().manual_seed(6), "cpu")
+    fields = lambda best, used, tree: dict(tree_to_numpy(tree)._asdict(), best=best.cpu().numpy(),
+                                           episodes_used=used.cpu().numpy())
+    config_launches = None
+    for label, kw in GAPE_CASES:
+        print(f"-- {label}")
+        env, params, states = garnet_case(dev, branching=2)
+        states0 = states(dev, TREES)
+        generator = torch.Generator(device=dev).manual_seed(0)
+        plan = lambda: mdp_gape_plan_batch(env, params, states0, generator, device=dev, **kw)
+        # no warm-up plan: phase 3 ran this planner at these shapes already
+        reset_launches()
+        reset_newton()
+        times = timed_plans(plan)
+        launches = read_launches()
+        expect_launches("MDP-GapE batch path, 5 plans", launches, 5 * GAPE_KL_LAUNCHES, 0)
+        config_launches = config_launches or launches
+        report_plans(f"mdp_gape_plan_batch B={TREES} episodes={kw['episodes']} (+1) "
+                     f"horizon={kw['horizon']} width={kw['width']} confidence={kw['confidence']}",
+                     times, steps, "env-steps")
+        print(f"  {launches['kl_bound'] // 5} kl_bound launches per plan; 5 plans: {newton_line()}, "
+              f"in blocks of {port_math.NEWTON_BLOCK}")
+        # the trips the data needs: the same plan with a read-back every trip
+        block, port_math.NEWTON_BLOCK = port_math.NEWTON_BLOCK, 1
+        try:
+            reset_newton()
+            ms = timed_plans(plan, 1)[0]
+        finally:
+            port_math.NEWTON_BLOCK = block
+        print(f"  one plan with a read-back every trip: {ms!r} ms, {newton_line()}")
+        profiled = profile_plan(plan, host_events=False)
+        if profiled["kl_launches"] != GAPE_KL_LAUNCHES:
+            raise AssertionError(f"the profiler saw {profiled['kl_launches']} KL kernels in one "
+                                 f"plan, expected {GAPE_KL_LAUNCHES}")
+        best, used, tree = plan()
+        if not ((best >= 0) & (best < kw["num_actions"])).all() \
+                or not (used == kw["episodes"] + 1).all() \
+                or not torch.isfinite(tree.c_value_upper).all() \
+                or not (tree.d_mu_lcb <= tree.d_mu_ucb).all():
+            raise AssertionError("MDP-GapE batch plan produced invalid actions, episodes or bounds")
+
+        env, params, states = garnet_case(dev, branching=1)
+        got = fields(*mdp_gape_plan_batch(env, params, states(dev, TREES), None, noise=noise,
+                                          device=dev, **kw))
+        want = fields(*mdp_gape_plan_batch(env, type(params)(*(v.cpu() for v in params)),
+                                           states(cpu, CPU_SUBSET), None,
+                                           noise=noise[:, :, :CPU_SUBSET], device=cpu, **kw))
+        same_on_cpu("mdp_gape_plan_batch (deterministic garnet)", got, want,
+                    ("best", "episodes_used", "d_parent", "d_count", "d_children", "c_children",
+                     "c_child_keys", "d_used", "c_used"),
+                    ("d_mu_ucb", "d_mu_lcb", "d_value_upper", "d_value_lower", "c_value_upper",
+                     "c_value_lower"))
+    return config_launches
+
+
+def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan: int,
+                     kl_bound_indexed_per_plan: int) -> dict:
+    """One episode through ``load_environment`` / ``load_agent`` /
+    ``Evaluation.test`` on the card; returns the launches of each KL wrapper,
+    which must be the given numbers per planning step."""
     from rl_agents_torch.factory import load_agent, load_environment
-    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_indexed_
     from rl_agents_torch.trainer.evaluation import Evaluation
 
-    env_config = json.loads((REPO / "scripts" / "configs" / "CartPoleEnv" / "env.json").read_text())
-    env_config["max_episode_steps"] = AGENT_MAX_STEPS
     env = load_environment(env_config, device=dev)
-    agent = load_agent(dict(AGENT_CONFIG), env, device=dev)
+    agent = load_agent(agent_config, env, device=dev)
     evaluation = Evaluation(env, agent, directory=REPO / "out" / "chip_smoke", num_episodes=1,
                             training=False, sim_seed=0)
-    kl_bound.launches = kl_bound_indexed_.launches = 0
+    reset_launches()
+    reset_newton()
     started = time.time()
     evaluation.test()
     torch.cuda.synchronize()
     seconds = time.time() - started
-    launches = {"kl_bound": kl_bound.launches, "kl_bound_indexed_": kl_bound_indexed_.launches}
-    episode = json.loads((evaluation.run_directory / Evaluation.EPISODES_FILE).read_text().splitlines()[-1])
-    per_plan = agent.config["episodes"]
-    print(f"agent path: OLOPAgent budget {AGENT_CONFIG['budget']} "
+    launches = read_launches()
+    episodes_file = evaluation.run_directory / Evaluation.EPISODES_FILE
+    episode = json.loads(episodes_file.read_text().splitlines()[-1])
+    print(f"{name} agent path: budget {agent.config['budget']} "
           f"({agent.config['episodes']} episodes x horizon {agent.config['horizon']}), "
           f"return {episode['total_reward']!r} in {episode['length']} steps, {seconds!r} s "
-          f"({seconds / episode['length']!r} s per step), launches {launches}")
-    if launches["kl_bound_indexed_"] != per_plan * episode["length"] or launches["kl_bound"] != 0:
-        raise AssertionError(f"launches {launches}, expected {per_plan} kl_bound_indexed_ "
-                             "per step and no kl_bound")
+          f"({seconds / episode['length']!r} s per step), launches {launches}; {newton_line()}")
+    if not np.isfinite(episode["total_reward"]) or episode["length"] < 1:
+        raise AssertionError(f"{name} agent path: invalid episode {episode}")
+    expect_launches(f"{name} agent path", launches, kl_bound_per_plan * episode["length"],
+                    kl_bound_indexed_per_plan * episode["length"])
     return launches
 
 
@@ -374,6 +649,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
     sys.path.insert(0, str(REPO))
+    from rl_agents_torch.agents.tree_search.common import allocation
     from rl_agents_torch.ops import kl_bound as kl_module
 
     phase("1. card")
@@ -394,15 +670,33 @@ def main():
     phase("3. kernels against their plain versions")
     kernels = [check_kl_bound(dev), check_kl_bound_indexed(dev)]
 
-    phase("4. batch path")
-    check_batch_path(dev)
-
-    phase("5. agent path")
-    launches = check_agent_path(dev)
+    cartpole = json.loads((CONFIGS / "CartPoleEnv" / "env.json").read_text())
+    cartpole["max_episode_steps"] = AGENT_MAX_STEPS
+    paths = {}
+    phase("4. OLOP batch path")
+    paths["olop_batch_5_plans"] = check_olop_batch_path(dev)
+    phase("5. OLOP agent path")
+    # one kl_bound_indexed_ launch per planning episode
+    paths["olop_agent"] = check_agent_path(dev, "OLOPAgent", cartpole, dict(AGENT_CONFIG), 0,
+                                           allocation(AGENT_CONFIG["budget"], GAMMA)[0])
+    phase("6. MCTS batch path")
+    paths["mcts_batch_5_plans"] = check_mcts_batch_path(dev)
+    phase("7. MCTS agent path")
+    paths["mcts_agent"] = check_agent_path(dev, "MCTSAgent", cartpole,
+                                           CONFIGS / "CartPoleEnv" / "MCTSAgent.json", 0, 0)
+    phase("8. MDP-GapE batch path")
+    paths["mdp_gape_batch_5_plans"] = check_gape_batch_path(dev)
+    phase("9. MDP-GapE agent path")
+    paths["mdp_gape_agent"] = check_agent_path(
+        dev, "MDPGapEAgent", CONFIGS / "FiniteMDPEnv" / "env_garnet.json", CONFIGS / "FiniteMDPEnv" / "agents" / "mdp-gape.json",
+        GAPE_KL_LAUNCHES, 0)
     for kernel in kernels:
-        kernel["launches"] = launches[kernel["name"]]
+        kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
+        kernel["launches"] = sum(kernel["launches_by_path"].values())
+        if kernel["launches"] == 0:
+            raise AssertionError(f"no path launched {kernel['name']}")
 
-    phase("6. summary")
+    phase("10. summary")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

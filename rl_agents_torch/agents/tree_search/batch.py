@@ -8,6 +8,8 @@ place of the per-tree keys.
 """
 from __future__ import annotations
 
+from rl_agents_torch.agents.tree_search.mcts import mcts_plan_batch  # noqa: F401 (re-export)
+from rl_agents_torch.agents.tree_search.mdp_gape import mdp_gape_plan
 from rl_agents_torch.agents.tree_search.olop import olop_plan
 
 
@@ -16,3 +18,9 @@ def olop_plan_batch(env, params, states0, generator=None, **kw):
     scripts/planners_evaluation.py:53-124). Returns ``(actions [B, H],
     lengths [B], OLOPTree)``."""
     return olop_plan(env, params, states0, generator, **kw)
+
+
+def mdp_gape_plan_batch(env, params, states0, generator=None, **kw):
+    """Batched MDP-GapE (reference: mdp_gape.py:11-344). Returns ``(best
+    action [B], episodes_used [B], GapETree)``."""
+    return mdp_gape_plan(env, params, states0, generator, **kw)

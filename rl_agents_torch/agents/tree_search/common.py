@@ -32,6 +32,57 @@ def allocation(budget: int, gamma: float):
     raise ValueError(f"Could not split budget {budget} with gamma {gamma}")
 
 
+def arena_subtree_gather(parent, children, used, action, out_capacity: int):
+    """Compute the stable-gather compaction of the subtree rooted at the
+    root's child for ``action`` in each of B node arenas (the array analog of
+    the reference's step_by_subtree root-pointer move, abstract.py:194-206).
+
+    ``parent`` is ``[B, N]``, ``children`` ``[B, N, A]`` and ``action`` an int
+    or ``[B]``. Subtree membership is found by pointer doubling over parent
+    links. Because parents always precede children in creation order, sibling
+    blocks (the A children written by one expansion) are contiguous and
+    uniform under the mask, so truncating at a block boundary when the subtree
+    exceeds ``out_capacity`` keeps the tree well-formed.
+
+    Returns ``(old_of_new, new_id, new_used, slot, valid)``:
+    ``old_of_new [B, M]`` gathers old arena rows into the new arena (0 past
+    the kept nodes), ``new_id [B, N]`` maps old ids to new ids (-1 if
+    dropped), ``slot [B, M]`` marks allocated rows, ``valid [B]`` is False
+    where the action was never explored from the root.
+    """
+    B, N, A = children.shape
+    M = out_capacity
+    device = parent.device
+    idx = torch.arange(N, device=device).expand(B, N)
+    # structural aliveness: arenas with episode-indexed slot bases are allowed
+    # holes (slots never written), so ``idx < used`` is no membership test;
+    # allocated non-root nodes always have a parent
+    alive = (idx == 0) | (parent >= 0)
+    del used
+    action = torch.as_tensor(action, dtype=torch.int64, device=device).expand(B)
+    new_root = children[:, 0].gather(1, action[:, None])
+    valid = new_root.squeeze(1) >= 0
+
+    mask = (idx == new_root) & alive
+    jump = torch.where(parent >= 0, parent, idx)
+    for _ in range(max(int(N).bit_length(), 1)):
+        mask, jump = mask | mask.gather(1, jump), jump.gather(1, jump)
+    mask = mask & alive
+
+    rank = mask.cumsum(dim=1) - 1
+    size = mask.sum(dim=1)
+    cutoff = 1 + torch.div(size.clamp(max=M) - 1, A, rounding_mode="floor") * A
+    kept = mask & (rank < cutoff[:, None])
+    new_id = torch.where(kept, rank, -1)
+    # the kept ids in order, padded with 0: dropped nodes write a spare column
+    old_of_new = torch.zeros((B, M + 1), dtype=torch.int64, device=device)
+    old_of_new.scatter_(1, torch.where(kept, rank, M), idx)
+    old_of_new = old_of_new[:, :M].contiguous()
+    new_used = kept.sum(dim=1)
+    slot = torch.arange(M, device=device) < new_used[:, None]
+    return old_of_new, new_id, new_used, slot, valid
+
+
 class AbstractTreeSearchAgent(AbstractAgent):
     """Receding-horizon planning loop (reference: tree_search/abstract.py:15-106)."""
 
@@ -88,7 +139,13 @@ class AbstractTreeSearchAgent(AbstractAgent):
             self.remaining_horizon = self.config["receding_horizon"] - 1
         else:
             self.remaining_horizon -= 1
+        self.planner_step_tree(actions)
         return replanning_required
+
+    def planner_step_tree(self, actions):
+        """Tree-reuse hook (reference: abstract.py:172-206 step_tree). Default:
+        no carried state, i.e. 'reset'; planners that re-root their arena
+        override it."""
 
     def act(self, state):
         actions = self.plan(state)

@@ -27,7 +27,7 @@ from rl_agents_torch.agents.tree_search.common import AbstractTreeSearchAgent, a
 from rl_agents_torch.envs.base import FunctionalEnv, params_to
 from rl_agents_torch.ops.kl_bound import kl_bound_indexed_
 from rl_agents_torch.utils.device import resolve_device
-from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS
+from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS, fma
 
 
 def parse_threshold(spec, default_coeff: float = 4.0) -> float:
@@ -41,15 +41,6 @@ def parse_threshold(spec, default_coeff: float = 4.0) -> float:
             return float(m.group(1))
         raise ValueError(f"Unsupported threshold spec {spec!r}; use a coefficient c for c*log(time)")
     return default_coeff
-
-
-def _fma(a, b, c):
-    """``a * b + c`` rounded once, as a fused multiply-add: the JAX package's
-    backup (olop.py:164) compiles to one on the CPU, and exact ties between
-    backed-up and initial B-values are common, so one rounding step decides
-    which branch a descent takes. The float64 product of two float32 values
-    is exact."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
 class OLOPTree(NamedTuple):
@@ -195,7 +186,7 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
             ch = children[rows, n]
             best_child = child_values(value_upper, ch, -torch.inf).amax(dim=1)
             mu_n = mu_ucb[rows, n]
-            new_v = torch.where((ch >= 0).any(dim=1), _fma(gamma, best_child, mu_n), mu_n)
+            new_v = torch.where((ch >= 0).any(dim=1), fma(gamma, best_child, mu_n), mu_n)
             value_upper[rows, n] = torch.where(active, new_v, value_upper[rows, n])
             node = torch.where(active, parent[rows, n], node)
 

@@ -2,8 +2,12 @@
 
 For a planner the "weights" are the env params, the env states and the tree
 arenas. ``from_numpy`` turns the JAX package's NamedTuples (taken as numpy
-arrays, e.g. ``CartPoleParams/State``, ``MDPParams/State``) into this
-package's tensors; ``tree_to_numpy`` goes the other way for comparisons.
+arrays, e.g. ``CartPoleParams/State``, ``MDPParams/State``, or a garnet's
+``MDPParams``) into this package's tensors; ``tree_from_numpy`` does the same
+for a tree arena (``OLOPTree``, ``MCTSTree``, ``GapETree``), whose fields are
+``[N, ...]`` for one JAX tree and ``[B, N, ...]`` under ``vmap``, and gives the
+single tree its leading batch axis; ``tree_to_numpy`` goes the other way for
+comparisons.
 Tests and ``chip_smoke.py`` use this module; the planning path does not.
 """
 from __future__ import annotations
@@ -32,11 +36,24 @@ def from_numpy(namedtuple_cls, arrays, device="cuda"):
                              for name in namedtuple_cls._fields})
 
 
+def tree_from_numpy(namedtuple_cls, arrays, device="cuda", batched: bool = True):
+    """A tree arena of the JAX package as this package's batch-first arena.
+    ``batched=False`` says that ``arrays`` hold one tree, without a batch
+    axis: every field then gets a leading axis of 1."""
+    tree = from_numpy(namedtuple_cls, arrays, device=device)
+    if batched:
+        return tree
+    return namedtuple_cls(*(t.unsqueeze(0) for t in tree))
+
+
 def tree_to_numpy(tree):
     """NamedTuple of tensors -> the same NamedTuple of numpy arrays, integer
-    fields as int32 (the JAX package's arena dtype)."""
-    def convert(t):
+    fields as int32 (the JAX package's arena dtype) and 32-bit hash keys
+    (fields named ``*keys``) as uint32."""
+    def convert(name, t):
         array = t.detach().cpu().numpy()
-        return array.astype(np.int32) if array.dtype.kind in "iu" else array
+        if array.dtype.kind in "iu":
+            return array.astype(np.uint32 if name.endswith("keys") else np.int32)
+        return array
 
-    return type(tree)(*(convert(t) for t in tree))
+    return type(tree)(*(convert(name, t) for name, t in zip(tree._fields, tree)))

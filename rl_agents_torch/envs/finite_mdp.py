@@ -9,7 +9,9 @@ share one params NamedTuple; the mode is static structure:
 * ``sparse``:        next[S, A, K] indices + transition[S, A, K] probabilities
 
 Stochastic modes draw with ``torch.multinomial`` on the caller's generator,
-so they agree with the JAX package in distribution only.
+so they agree with the JAX package in distribution only. ``garnet`` draws its
+random MDP from a seeded ``torch.Generator`` too: for one seed it is another
+MDP than the JAX package's.
 """
 from __future__ import annotations
 
@@ -132,12 +134,70 @@ def params_from_config(config: dict, device="cuda") -> tuple[FiniteMDPEnv, MDPPa
     return env, params
 
 
+def garnet(generator: torch.Generator, num_states: int, num_actions: int, branching: int = 2,
+           reward_sparsity: float = 0.5,
+           max_episode_steps: int = 100) -> tuple[FiniteMDPEnv, MDPParams]:
+    """Random Garnet MDP (sparse mode), drawn from ``generator`` on its device:
+    ``branching`` uniform next states per (state, action) with Dirichlet(1)
+    probabilities, and uniform rewards of which the share ``reward_sparsity``
+    is set to 0."""
+    device = generator.device
+    shape = (num_states, num_actions, branching)
+    nxt = torch.randint(0, num_states, shape, generator=generator, device=device)
+    # Dirichlet(1, ..., 1): normalised unit exponentials
+    spacings = -torch.log1p(-torch.rand(shape, generator=generator, device=device))
+    probs = spacings / spacings.sum(dim=-1, keepdim=True)
+    reward = torch.rand(shape[:2], generator=generator, device=device)
+    reward = reward * (reward < (1 - reward_sparsity))
+    env = FiniteMDPEnv(num_states, num_actions, mode="sparse",
+                       max_episode_steps=max_episode_steps)
+    params = MDPParams(
+        transition=probs, reward=reward,
+        terminal=torch.zeros((num_states,), dtype=torch.bool, device=device), next=nxt,
+        initial_state=torch.zeros((), dtype=torch.int64, device=device))
+    return env, params
+
+
+class MDPAccessor:
+    """Duck-typed ``env.mdp`` view for the Value Iteration agents
+    (reference: value_iteration.py:14 reads env.mdp.{transition,reward,terminal,mode})."""
+
+    def __init__(self, env: FiniteMDPEnv, params: MDPParams):
+        self.mode = env.mode
+        self.env = env
+        self.params = params
+
+    def __getattr__(self, name):
+        # numpy copies of the tables, made when first read: ``make`` builds
+        # this view for every env and most agents never look at it
+        if name in ("transition", "reward", "terminal", "next"):
+            value = getattr(self.params, name).cpu().numpy()
+            setattr(self, name, value)
+            return value
+        raise AttributeError(name)
+
+    def next_state(self, s, a, generator: torch.Generator | None = None) -> int:
+        if self.mode == "deterministic":
+            return int(self.transition[s, a])
+        device = self.params.reward.device
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        index = torch.tensor([s, a], device=device)
+        return int(self.env.next_state(self.params, index[:1], index[1:], generator))
+
+
 def make(config: dict | None = None, device="cuda") -> EnvHandle:
     config = dict(config or {})
     if "transition" in config:
         env, params = params_from_config(config, device="cpu")
     elif config.get("generator") == "garnet":
-        raise NotImplementedError("garnet finite MDPs are not yet ported to rl_agents_torch")
+        # drawn on the CPU, so that one seed gives one MDP on every device; the
+        # episode length is the config's (the JAX package's garnet keeps 100)
+        env, params = garnet(torch.Generator().manual_seed(config.get("seed", 0)),
+                             config.get("num_states", 16), config.get("num_actions", 4),
+                             config.get("branching", 2),
+                             max_episode_steps=config.get("max_episode_steps",
+                                                          config.get("max_steps", 100)))
     else:
         # default small loop MDP (reference scripts/configs/FiniteMDPEnv/env_loop.json shape)
         env, params = params_from_config({
@@ -146,4 +206,6 @@ def make(config: dict | None = None, device="cuda") -> EnvHandle:
             "reward": [[0, 1, 0.9], [0, 0, 0.9], [0, 1, 0], [0, 1, 0.9]],
             "terminal": [0, 0, 0, 0],
         }, device="cpu")
-    return EnvHandle(env, params, config, device=device)
+    handle = EnvHandle(env, params, config, device=device)
+    handle.mdp = MDPAccessor(env, handle.params)
+    return handle

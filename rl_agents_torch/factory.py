@@ -21,6 +21,8 @@ logger = logging.getLogger(__name__)
 
 # name -> "module:Class", imported on first use
 AGENT_REGISTRY: Dict[str, str] = {
+    "MCTSAgent": "rl_agents_torch.agents.tree_search.mcts:MCTSAgent",
+    "MDPGapEAgent": "rl_agents_torch.agents.tree_search.mdp_gape:MDPGapEAgent",
     "OLOPAgent": "rl_agents_torch.agents.tree_search.olop:OLOPAgent",
 }
 

@@ -62,5 +62,9 @@ def test_agent_class_resolves_reference_paths_and_refuses_the_rest():
     olop = agent_class("<class 'rl_agents.agents.tree_search.olop.OLOPAgent'>")
     assert olop is agent_class("OLOPAgent")
     assert olop.__module__ == "rl_agents_torch.agents.tree_search.olop"
+    mcts = agent_class("<class 'rl_agents.agents.tree_search.mcts.MCTSAgent'>")
+    assert mcts.__module__ == "rl_agents_torch.agents.tree_search.mcts"
+    gape = agent_class("<class 'rl_agents.agents.tree_search.mdp_gape.MDPGapEAgent'>")
+    assert gape.__module__ == "rl_agents_torch.agents.tree_search.mdp_gape"
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        agent_class("MCTSAgent")
+        agent_class("DQNAgent")

@@ -170,3 +170,48 @@ def test_env_handle_carries_a_jax_state_and_forks():
         assert (r_t, term_t, trunc_t) == (r_j, term_j, trunc_j)
     assert fork.state.t.item() == 0  # the fork keeps the state it was made from
     assert handle_t.state.t.item() == 3
+
+
+def test_garnet_draws_a_seeded_sparse_mdp():
+    """The port's garnet has the structure of the JAX package's (shapes, mode,
+    rows that are distributions, the share of zeroed rewards) but, drawn from
+    a ``torch.Generator``, is another MDP for the same seed."""
+    env_j, params_j = jax_mdp.garnet(jax.random.PRNGKey(0), 64, 4, branching=3)
+    env_t, params_t = torch_mdp.garnet(torch.Generator().manual_seed(0), 64, 4, branching=3)
+    assert (env_t.mode, env_t.num_states, env_t.num_actions) == \
+        (env_j.mode, env_j.num_states, env_j.num_actions) == ("sparse", 64, 4)
+    for name in torch_mdp.MDPParams._fields:
+        got, want = getattr(params_t, name), np.asarray(getattr(params_j, name))
+        assert tuple(got.shape) == want.shape, name
+        assert got.dtype == (torch.bool if want.dtype == bool else
+                             torch.float32 if want.dtype.kind == "f" else torch.int64), name
+    np.testing.assert_allclose(params_t.transition.sum(-1).numpy(), 1.0, atol=1e-6)
+    assert (params_t.transition > 0).all()
+    assert int(params_t.next.min()) >= 0 and int(params_t.next.max()) < 64
+    assert len(np.unique(params_t.next.numpy())) > 32
+    reward = params_t.reward.numpy()
+    assert ((reward == 0) | ((reward > 0) & (reward < 0.5))).all()
+    assert abs((reward == 0).mean() - (np.asarray(params_j.reward) == 0).mean()) < 0.15
+    again = torch_mdp.garnet(torch.Generator().manual_seed(0), 64, 4, branching=3)[1]
+    other = torch_mdp.garnet(torch.Generator().manual_seed(1), 64, 4, branching=3)[1]
+    assert all(torch.equal(a, b) for a, b in zip(params_t, again))
+    assert not torch.equal(params_t.next, other.next)
+
+
+def test_garnet_env_from_the_corpus_config_and_its_mdp_view():
+    config = json.loads((CONFIGS / "env_garnet.json").read_text())
+    env = torch_mdp.make(config, device="cpu")
+    same = torch_mdp.make(config, device="cpu")
+    assert env.functional.mode == "sparse" and env.functional.max_episode_steps == 20
+    assert torch.equal(env.params.next, same.params.next)
+    mdp = env.mdp
+    assert mdp.mode == "sparse"
+    assert mdp.transition.shape == mdp.next.shape == (16, 4, 2) and mdp.reward.shape == (16, 4)
+    assert mdp.terminal.shape == (16,) and not mdp.terminal.any()
+    for s, a in ((0, 0), (5, 3)):
+        assert mdp.next_state(s, a, torch.Generator().manual_seed(2)) in mdp.next[s, a]
+    obs, _ = env.reset(seed=0)
+    obs, reward, terminated, truncated, _ = env.step(1)
+    assert int(obs) in mdp.next[0, 1] and reward == float(mdp.reward[0, 1])
+    loop = torch_mdp.make({}, device="cpu").mdp
+    assert loop.mode == "deterministic" and loop.next_state(1, 1) == 3

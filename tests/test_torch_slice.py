@@ -90,3 +90,44 @@ def test_cli_defaults_to_cuda(tmp_path):
     env_path.write_text(json.dumps({"id": "cartpole"}))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_experiments_main(["evaluate", str(env_path), str(env_path), "--test"])
+
+
+@pytest.mark.parametrize("env_config,agent_config,steps", [
+    ({"id": "cartpole", "max_episode_steps": 4},
+     {"__class__": "MCTSAgent", "budget": 60, "temperature": 200, "gamma": 0.95}, 4),
+    ({"id": "finite-mdp", "generator": "garnet", "num_states": 16, "num_actions": 4,
+      "branching": 2, "seed": 0, "max_episode_steps": 3},
+     {"__class__": "<class 'rl_agents.agents.tree_search.mdp_gape.MDPGapEAgent'>", "gamma": 0.7,
+      "budget": 30, "accuracy": 0.0, "confidence": 1.0, "max_next_states_count": 2}, 3),
+])
+def test_cli_runs_the_new_agents_on_the_cpu(tmp_path, env_config, agent_config, steps):
+    """The corpus configs ``CartPoleEnv/MCTSAgent.json`` and
+    ``FiniteMDPEnv/agents/mdp-gape.json``, cut to a short episode and a small
+    budget, through ``python -m rl_agents_torch.experiments``."""
+    env_path, agent_path, out = tmp_path / "env.json", tmp_path / "agent.json", tmp_path / "out"
+    env_path.write_text(json.dumps(env_config))
+    agent_path.write_text(json.dumps(agent_config))
+    proc = subprocess.run(
+        [sys.executable, "-m", "rl_agents_torch.experiments", "evaluate", str(env_path),
+         str(agent_path), "--test", "--episodes", "1", "--seed", "0", "--device", "cpu",
+         "--directory", str(out)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    runs = list(out.glob("run_*"))
+    assert len(runs) == 1
+    episodes = [json.loads(line) for line in (runs[0] / "episodes.jsonl").read_text().splitlines()]
+    assert len(episodes) == 1 and episodes[0]["length"] == steps
+    assert np.isfinite(episodes[0]["total_reward"])
+
+
+def test_corpus_configs_load_for_both_new_agents():
+    env = torch_factory.load_environment(CONFIGS / "CartPoleEnv" / "env.json", device="cpu")
+    agent = torch_factory.load_agent(CONFIGS / "CartPoleEnv" / "MCTSAgent.json", env, device="cpu")
+    assert (agent.config["episodes"], agent.config["horizon"]) == (14, 26)
+    assert agent.config["temperature"] == 200
+    env = torch_factory.load_environment(CONFIGS / "FiniteMDPEnv" / "env_garnet.json",
+                                         device="cpu")
+    agent = torch_factory.load_agent(CONFIGS / "FiniteMDPEnv" / "agents" / "mdp-gape.json", env,
+                                     device="cpu")
+    assert (agent.config["episodes"], agent.config["horizon"]) == (20, 5)
