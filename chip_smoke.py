@@ -14,7 +14,8 @@ non-zero without its final line:
    OLOP-like statistics and on the inputs that MDP-GapE plans passed to it
    (recorded from the last episode of a 4096-tree plan and of a 1-tree plan
    at the confidence 1.0 of ``mdp-gape.json``, and of a 4096-tree plan at the
-   agent's default confidence 0.9), and its indexed form
+   agent's default confidence 0.9) and that a stochastic GBOP plan on Sailing
+   passed to it (its reward sums are negative), and its indexed form
    ``kl_bound_indexed_`` on a ``[4096, 369]`` arena at the planner's path of
    8 x 4096 nodes;
 4. the OLOP batch path at full width: ``olop_plan_batch`` on CartPole, 4096
@@ -27,7 +28,8 @@ non-zero without its final line:
 6. the MCTS batch path at full width: ``mcts_plan_batch`` on CartPole, 4096
    trees, 23 x 8, gamma 0.95, temperature 40, its first 64 trees checked
    against the CPU plan under the same noise; it launches no kernel;
-7. the MCTS agent path: ``CartPoleEnv/MCTSAgent.json`` for one episode;
+7. the MCTS agent path: ``CartPoleEnv/MCTSAgent.json`` for one episode, cut to
+   15 steps as the OLOP agent's;
 8. the MDP-GapE batch path: ``mdp_gape_plan_batch``, 4096 trees on the garnet
    MDP of ``FiniteMDPEnv/env_garnet.json`` at the sizes of
    ``FiniteMDPEnv/agents/mdp-gape.json`` (confidence 1.0) and again at the
@@ -36,8 +38,22 @@ non-zero without its final line:
    and the first 64 trees of a plan on a deterministic garnet checked against
    the CPU plan under the same noise;
 9. the MDP-GapE agent path: ``mdp-gape.json`` on ``env_garnet.json`` for one
-   episode;
-10. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
+   episode, cut to 10 steps;
+10. the stochastic GBOP batch path: ``gbop_stochastic_plan_batch`` on the
+    Sailing domain (``SailingEnv/env.json``, size 8), 4096 trees from random
+    starts at the sizes of ``SailingEnv/agents/gbop.json`` (3 episodes x
+    horizon 55, one next-state slot), two dense ``kl_bound`` launches per
+    (episode, depth) step, 330 a plan, its value-iteration sweeps counted and
+    its first 64 trees checked against the CPU plan under the same noise; then
+    the same planner with three next-state slots on 512 trees, the Newton
+    trips of its constrained expectations counted;
+11. the GBOP-D batch path: ``gbop_plan_batch`` on Sailing, 4096 trees, 25
+    expansions (``gbop-d.json``), its Bellman sweeps counted; no kernel;
+12. the OPD batch path: ``opd_plan_batch`` on CartPole, 4096 trees, 115
+    expansions; no kernel;
+13. the Sailing agent paths: ``gbop.json``, ``gbop-d.json`` and ``opd.json`` on
+    ``SailingEnv/env.json``, a cut episode each;
+14. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
     last line.
 
 Every path is driven with every kernel launch counter set to 0 just before
@@ -72,7 +88,9 @@ ARENA = 1 + EPISODES * HORIZON * 2  # nodes per tree of the CartPole plan (2 act
 DENSE_LARGE = 1 << 24  # the dense form where bytes should bind
 CPU_SUBSET = 64
 AGENT_CONFIG = {"__class__": "OLOPAgent", "budget": 184, "gamma": GAMMA}
-AGENT_MAX_STEPS = 30
+AGENT_MAX_STEPS = 15
+GARNET_AGENT_STEPS = 10  # of the 20 of env_garnet.json
+PLANS = 3  # timed plans of each batch path
 CONFIGS = REPO / "scripts" / "configs"
 MCTS_TEMPERATURE = 40.0
 # MDP-GapE at the sizes of FiniteMDPEnv/agents/mdp-gape.json: budget 100 at
@@ -89,10 +107,29 @@ GAPE_STATES = 16
 # the planner runs while ``episode <= episodes``: episodes + 1 episodes of
 # horizon steps, an upper and a lower bound each
 GAPE_KL_LAUNCHES = 2 * (GAPE["episodes"] + 1) * GAPE["horizon"]
+# The Sailing planner study (SailingEnv/env.json with agents/gbop.json,
+# gbop-d.json, opd.json): budget 200 at gamma 0.99. Stochastic GBOP splits it
+# into 3 episodes x horizon 55 with one next-state slot and the thresholds
+# 1 log(3) and 0.1 log(3); GBOP-D and OPD into 200 / 8 actions = 25 expansions
+SAILING_GAMMA, SAILING_BUDGET, SAILING_ACTIONS = 0.99, 200, 8
+GBOP = dict(num_actions=SAILING_ACTIONS, episodes=3, horizon=55, gamma=SAILING_GAMMA,
+            accuracy=1e-2, reward_threshold_coeff=1.0, transition_threshold_coeff=0.1, width=1)
+# three next-state slots, the wind's three outcomes: no corpus config sets it
+GBOP_WIDE = dict(GBOP, width=3)
+GBOP_WIDE_TREES = 512
+GBOP_KL_LAUNCHES = 2 * GBOP["episodes"] * GBOP["horizon"]
+GBOP_D = dict(num_actions=SAILING_ACTIONS, expansions=SAILING_BUDGET // SAILING_ACTIONS,
+              gamma=SAILING_GAMMA, accuracy=1e-2)
+# OPD on CartPole at the JAX bench's budget: 230 / 2 actions = 115 expansions
+OPD = dict(num_actions=2, expansions=115, gamma=GAMMA)
+SAILING_AGENT_STEPS = 10
+
+
+STARTED = time.time()
 
 
 def phase(title: str):
-    print(f"== {title}", flush=True)
+    print(f"== {title} (at {time.time() - STARTED:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -131,7 +168,7 @@ def expect_launches(path: str, got: dict, kl_bound: int, kl_bound_indexed_: int)
         raise AssertionError(f"{path}: launches {got}, expected {want}")
 
 
-def timed_plans(plan, count: int = 5) -> list:
+def timed_plans(plan, count: int = PLANS) -> list:
     """Milliseconds of each of ``count`` plans, by CUDA events."""
     times = []
     for _ in range(count):
@@ -247,6 +284,63 @@ def gape_kl_calls(dev, kw: dict, trees: int) -> list:
     return calls[-2 * kw["horizon"]:]
 
 
+def sailing_case(dev):
+    """The Sailing domain of ``SailingEnv/env.json`` (size 8) on ``dev`` and
+    ``TREES`` start states from a seed: random positions short of the goal
+    and random winds."""
+    from rl_agents_torch.envs.sailing import SailingEnv, SailingState
+
+    config = json.loads((CONFIGS / "SailingEnv" / "env.json").read_text())
+    env = SailingEnv(size=config["size"], max_episode_steps=20 * config["size"])
+    rng = np.random.default_rng(4)
+    pos = rng.integers(0, config["size"] - 1, (TREES, 2))
+    wind = rng.integers(0, 8, TREES)
+
+    def states(device, n):
+        return SailingState(pos=torch.tensor(pos[:n], device=device),
+                            wind=torch.tensor(wind[:n], device=device),
+                            t=torch.zeros(n, dtype=torch.int64, device=device))
+
+    return env, env.default_params(dev), states
+
+
+def gbop_kl_calls(dev) -> list:
+    """``[((sum, count, threshold), lower), ...]``: the inputs of the dense
+    launches of the last episode of one stochastic GBOP plan of ``TREES``
+    trees on Sailing, as the planner passed them, upper and lower in turn for
+    each depth. Sailing pays -cost / worst in [-1, 0), so the sums are
+    negative."""
+    from rl_agents_torch.agents.tree_search import graph_based_stochastic as gbop
+
+    env, params, states = sailing_case(dev)
+    calls = []
+    inner = gbop.kl_upper_bound
+
+    def recording(_sum, count, threshold, lower=False, **rest):
+        inputs = tuple(v.clone() for v in torch.broadcast_tensors(_sum, count, threshold))
+        calls.append((inputs, lower))
+        return inner(_sum, count, threshold, lower=lower, **rest)
+
+    gbop.kl_upper_bound = recording
+    try:
+        states0 = states(dev, TREES)
+        gbop.gbop_stochastic_plan(env, params, states0, env.observe(params, states0),
+                                  torch.Generator(device=dev).manual_seed(12), device=dev, **GBOP)
+    finally:
+        gbop.kl_upper_bound = inner
+    if len(calls) != GBOP_KL_LAUNCHES:
+        raise AssertionError(f"a stochastic GBOP plan made {len(calls)} KL calls, "
+                             f"expected {GBOP_KL_LAUNCHES}")
+    calls = calls[-2 * GBOP["horizon"]:]
+    negative = sum(int((inputs[0] < 0).sum()) for inputs, _ in calls)
+    total = sum(inputs[0].numel() for inputs, _ in calls)
+    print(f"stochastic GBOP on Sailing, last episode: {negative} of {total} reward sums passed "
+          f"to kl_bound are negative")
+    if negative == 0:
+        raise AssertionError("no negative reward sum reached kl_bound on Sailing")
+    return calls
+
+
 def time_dense(label: str, inputs, n: int, lower: bool, reps, dev) -> dict:
     from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_torch
     from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS as ITERS
@@ -268,7 +362,8 @@ def check_kl_bound(dev) -> dict:
     """The dense form against its plain version on the inputs that MDP-GapE
     plans passed to it (every launch of a plan's last episode: 4096 trees and
     1 tree at the config's confidence 1.0, 4096 trees at the agent's default
-    0.9), at OLOP's former per-depth shape, a large odd size, 2^24 and the
+    0.9) and that a stochastic GBOP plan on Sailing passed to it (every launch
+    of its last episode: negative sums), at OLOP's former per-depth shape, a large odd size, 2^24 and the
     edge cases; timed on the first-depth launches of those plans, at n = 4096
     on OLOP-like statistics and at n = 2^24 (bytes-bound)."""
     from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_torch
@@ -278,11 +373,14 @@ def check_kl_bound(dev) -> dict:
     worst = 0.0
     gape = {"config": gape_kl_calls(dev, GAPE, TREES), "config_n1": gape_kl_calls(dev, GAPE, 1),
             "default": gape_kl_calls(dev, GAPE_DEFAULT, TREES)}
+    gbop = gbop_kl_calls(dev)
     cases = [(f"{n} OLOP-like", kl_inputs(n, rng, dev), (False, True))
              for n in (TREES, 1_000_003, DENSE_LARGE)]
     cases.append(("8 edge cases", kl_edge_inputs(dev), (False, True)))
     cases += [(f"{inputs[0].numel()} MDP-GapE {tag} launch {i}", inputs, (lower,))
               for tag, calls in gape.items() for i, (inputs, lower) in enumerate(calls)]
+    cases += [(f"{inputs[0].numel()} stochastic GBOP on Sailing launch {i}", inputs, (lower,))
+              for i, (inputs, lower) in enumerate(gbop)]
     for label, inputs, sides in cases:
         for lower in sides:
             for iters in (24, NEWTON_MAX_ITERATIONS):
@@ -305,6 +403,12 @@ def check_kl_bound(dev) -> dict:
         for inputs, lower in gape[tag][:2]:
             timed[f"gape_{tag}_{'lower' if lower else 'upper'}"] = time_dense(
                 label, inputs, inputs[0].numel(), lower, reps, dev)
+    # stochastic GBOP: the first and the last depth of the recorded episode
+    for tag, pair in (("first", gbop[:2]), ("last", gbop[-2:])):
+        for inputs, lower in pair:
+            timed[f"gbop_{tag}_{'lower' if lower else 'upper'}"] = time_dense(
+                f"stochastic GBOP on Sailing, {tag} depth", inputs, inputs[0].numel(), lower,
+                reps, dev)
     main = timed.pop("gape_config_upper")
     timed["olop_like"] = time_dense("OLOP-like", kl_inputs(TREES, rng, dev), TREES, False, reps, dev)
     timed[f"n{DENSE_LARGE}"] = time_dense("OLOP-like", kl_inputs(DENSE_LARGE, rng, dev),
@@ -472,10 +576,10 @@ def check_olop_batch_path(dev) -> dict:
     reset_launches()
     times = timed_plans(plan)
     launches = read_launches()
-    expect_launches("OLOP batch path, 5 plans", launches, 0, 5 * EPISODES)
+    expect_launches(f"OLOP batch path, {PLANS} plans", launches, 0, PLANS * EPISODES)
     report_plans(f"olop_plan_batch B={TREES} episodes={EPISODES} horizon={HORIZON}", times,
                  TREES * EPISODES * HORIZON, "env-steps")
-    print(f"  {launches['kl_bound_indexed_'] // 5} kl_bound_indexed_ launches per plan")
+    print(f"  {launches['kl_bound_indexed_'] // PLANS} kl_bound_indexed_ launches per plan")
     profile_plan(plan)
 
     got = plan_fields(*plan())
@@ -509,7 +613,7 @@ def check_mcts_batch_path(dev) -> dict:
     reset_launches()
     times = timed_plans(plan)
     launches = read_launches()
-    expect_launches("MCTS batch path, 5 plans", launches, 0, 0)
+    expect_launches(f"MCTS batch path, {PLANS} plans", launches, 0, 0)
     report_plans(f"mcts_plan_batch B={TREES} episodes={EPISODES} horizon={HORIZON} "
                  f"temperature={MCTS_TEMPERATURE}", times, TREES * EPISODES * HORIZON, "env-steps")
     profile_plan(plan)
@@ -573,12 +677,14 @@ def check_gape_batch_path(dev) -> dict:
         reset_newton()
         times = timed_plans(plan)
         launches = read_launches()
-        expect_launches("MDP-GapE batch path, 5 plans", launches, 5 * GAPE_KL_LAUNCHES, 0)
+        expect_launches(f"MDP-GapE batch path, {PLANS} plans", launches,
+                        PLANS * GAPE_KL_LAUNCHES, 0)
         config_launches = config_launches or launches
         report_plans(f"mdp_gape_plan_batch B={TREES} episodes={kw['episodes']} (+1) "
                      f"horizon={kw['horizon']} width={kw['width']} confidence={kw['confidence']}",
                      times, steps, "env-steps")
-        print(f"  {launches['kl_bound'] // 5} kl_bound launches per plan; 5 plans: {newton_line()}, "
+        print(f"  {launches['kl_bound'] // PLANS} kl_bound launches per plan; {PLANS} plans: "
+              f"{newton_line()}, "
               f"in blocks of {port_math.NEWTON_BLOCK}")
         # the trips the data needs: the same plan with a read-back every trip
         block, port_math.NEWTON_BLOCK = port_math.NEWTON_BLOCK, 1
@@ -588,11 +694,12 @@ def check_gape_batch_path(dev) -> dict:
         finally:
             port_math.NEWTON_BLOCK = block
         print(f"  one plan with a read-back every trip: {ms!r} ms, {newton_line()}")
-        profiled = profile_plan(plan, host_events=False)
+        results = []
+        profiled = profile_plan(lambda: results.append(plan()), host_events=False)
         if profiled["kl_launches"] != GAPE_KL_LAUNCHES:
             raise AssertionError(f"the profiler saw {profiled['kl_launches']} KL kernels in one "
                                  f"plan, expected {GAPE_KL_LAUNCHES}")
-        best, used, tree = plan()
+        best, used, tree = results[0]
         if not ((best >= 0) & (best < kw["num_actions"])).all() \
                 or not (used == kw["episodes"] + 1).all() \
                 or not torch.isfinite(tree.c_value_upper).all() \
@@ -613,6 +720,218 @@ def check_gape_batch_path(dev) -> dict:
     return config_launches
 
 
+def reset_sweeps():
+    from rl_agents_torch.agents.tree_search.deterministic import _finalize_bounds
+    from rl_agents_torch.agents.tree_search.graph_based import _value_iteration_sweeps as vi
+    from rl_agents_torch.agents.tree_search.graph_based_stochastic import gbop_stochastic_plan
+
+    vi.calls = vi.sweeps = vi.tree_sweeps = 0
+    gbop_stochastic_plan.vi_calls = gbop_stochastic_plan.vi_sweeps = 0
+    gbop_stochastic_plan.vi_tree_sweeps = 0
+    _finalize_bounds.sweeps = 0
+
+
+def sweep_line(trees: int) -> str:
+    """The sweeps since ``reset_sweeps`` of the planners that made any: run
+    (all trees together, until the last one stopped) and needed (the mean
+    over ``trees`` trees of the sweeps each made before its own residual fell
+    to the accuracy)."""
+    from rl_agents_torch.agents.tree_search.deterministic import _finalize_bounds
+    from rl_agents_torch.agents.tree_search.graph_based import _value_iteration_sweeps as vi
+    from rl_agents_torch.agents.tree_search.graph_based_stochastic import gbop_stochastic_plan as g
+
+    parts = []
+    if vi.calls:
+        parts.append(f"GBOP-D Bellman sweeps: {vi.sweeps} run in {vi.calls} calls, "
+                     f"{vi.tree_sweeps / trees!r} needed per tree")
+    if g.vi_calls:
+        parts.append(f"stochastic GBOP value-iteration sweeps: {g.vi_sweeps} run in {g.vi_calls} "
+                     f"calls, {g.vi_tree_sweeps / trees!r} needed per tree")
+    if _finalize_bounds.sweeps:
+        parts.append(f"OPD consolidation sweeps: {_finalize_bounds.sweeps}")
+    return "; ".join(parts) or "no sweeps"
+
+
+def graph_fields(graph, **extra) -> dict:
+    from rl_agents_torch.convert import tree_to_numpy
+
+    return dict(tree_to_numpy(graph)._asdict(), **{k: v.cpu().numpy() for k, v in extra.items()})
+
+
+def check_gbop_batch_path(dev) -> dict:
+    """``gbop_stochastic_plan_batch`` on Sailing at the sizes of ``gbop.json``:
+    timed, its KL launches counted and their device time read from the
+    profiler, its value-iteration sweeps counted, its first 64 trees held
+    against the CPU plan under the same noise; then the planner with three
+    next-state slots on 512 trees, with the Newton trips of its constrained
+    expectations as run (in blocks) and as needed (read back every trip).
+    Returns the launches of the config's timed plans."""
+    from rl_agents_torch.agents.tree_search.batch import gbop_stochastic_plan_batch
+    from rl_agents_torch.utils import math as port_math
+    from rl_agents_torch.utils.noise import gumbel, uniform
+
+    env, params, states = sailing_case(dev)
+    E, H, A = GBOP["episodes"], GBOP["horizon"], GBOP["num_actions"]
+    states0 = states(dev, TREES)
+    obs0 = env.observe(params, states0)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    plan = lambda: gbop_stochastic_plan_batch(env, params, states0, obs0, generator, device=dev,
+                                              **GBOP)
+    # no warm-up plan: phase 3 ran this planner at these shapes already
+    reset_launches()
+    reset_sweeps()
+    times = timed_plans(plan)
+    launches = read_launches()
+    expect_launches(f"stochastic GBOP batch path, {PLANS} plans", launches,
+                    PLANS * GBOP_KL_LAUNCHES, 0)
+    report_plans(f"gbop_stochastic_plan_batch B={TREES} episodes={E} horizon={H} "
+                 f"width={GBOP['width']}", times, TREES * E * H, "sample-steps")
+    print(f"  {launches['kl_bound'] // PLANS} kl_bound launches per plan; {PLANS} plans: "
+          f"{sweep_line(TREES)}")
+    profiled = profile_plan(plan, host_events=False)
+    if profiled["kl_launches"] != GBOP_KL_LAUNCHES:
+        raise AssertionError(f"the profiler saw {profiled['kl_launches']} KL kernels in one "
+                             f"plan, expected {GBOP_KL_LAUNCHES}")
+
+    # the same noise on both devices: drawn once on the CPU
+    cpu = torch.device("cpu")
+    host = torch.Generator().manual_seed(7)
+    noise = (gumbel((E, H, TREES, A), host, "cpu"), gumbel((TREES, A), host, "cpu"))
+    env_noise = uniform((E, H, TREES), host, "cpu")
+    action, graph = gbop_stochastic_plan_batch(env, params, states0, obs0, noise=noise,
+                                               env_noise=env_noise, device=dev, **GBOP)
+    if not ((action >= 0) & (action < A)).all() or not torch.isfinite(graph.value_upper).all() \
+            or not (graph.value_lower <= graph.value_upper + KL_TOLERANCE).all() \
+            or not (graph.n_count.sum(dim=1) == E * H).all() \
+            or not (graph.sa_mu_lcb <= graph.sa_mu_ucb).all():
+        raise AssertionError("stochastic GBOP batch plan produced invalid actions, counts or bounds")
+    got = graph_fields(graph, action=action)
+    states_cpu = states(cpu, CPU_SUBSET)
+    params_cpu = env.default_params(cpu)
+    action_cpu, graph_cpu = gbop_stochastic_plan_batch(
+        env, params_cpu, states_cpu, env.observe(params_cpu, states_cpu),
+        noise=(noise[0][:, :, :CPU_SUBSET], noise[1][:CPU_SUBSET]),
+        env_noise=env_noise[:, :, :CPU_SUBSET], device=cpu, **GBOP)
+    same_on_cpu("gbop_stochastic_plan_batch", got, graph_fields(graph_cpu, action=action_cpu),
+                ("action", "visited", "n_count", "c_count", "sa_count", "sa_keys", "sa_child",
+                 "sa_n", "used"),
+                ("sa_cum_reward", "sa_mu_ucb", "sa_mu_lcb", "value_lower", "value_upper"))
+
+    print(f"-- three next-state slots, {GBOP_WIDE_TREES} trees")
+    wide0 = states(dev, GBOP_WIDE_TREES)
+    wide_obs = env.observe(params, wide0)
+    wide = lambda: gbop_stochastic_plan_batch(env, params, wide0, wide_obs, generator, device=dev,
+                                              **GBOP_WIDE)
+    reset_launches()
+    reset_newton()
+    reset_sweeps()
+    result = []
+    ms = timed_plans(lambda: result.append(wide()), 1)[0]
+    expect_launches("stochastic GBOP, three slots, 1 plan", read_launches(), GBOP_KL_LAUNCHES, 0)
+    print(f"gbop_stochastic_plan_batch B={GBOP_WIDE_TREES} width=3: {ms!r} ms per plan, "
+          f"{GBOP_WIDE_TREES * E * H / (ms / 1e3)!r} sample-steps/s; {newton_line()}, in blocks "
+          f"of {port_math.NEWTON_BLOCK}; {sweep_line(GBOP_WIDE_TREES)}")
+    block, port_math.NEWTON_BLOCK = port_math.NEWTON_BLOCK, 1
+    try:
+        reset_newton()
+        ms = timed_plans(wide, 1)[0]
+    finally:
+        port_math.NEWTON_BLOCK = block
+    print(f"  one plan with a read-back every trip: {ms!r} ms, {newton_line()}")
+    profile_plan(wide, host_events=False)
+    action, graph = result[0]
+    if not ((action >= 0) & (action < A)).all() or not torch.isfinite(graph.value_upper).all() \
+            or int(graph.sa_n.max()) < 2:
+        raise AssertionError("stochastic GBOP with three slots produced invalid actions, bounds "
+                             "or never saw a second next state")
+    return launches
+
+
+def check_gbop_d_batch_path(dev) -> dict:
+    """``gbop_plan_batch`` on Sailing at the sizes of ``gbop-d.json``; it
+    launches no hand-written kernel (the JAX package computes GBOP-D outside
+    any Pallas kernel too)."""
+    from rl_agents_torch.agents.tree_search.batch import gbop_plan_batch
+    from rl_agents_torch.utils.noise import gumbel
+
+    env, params, states = sailing_case(dev)
+    R, A = GBOP_D["expansions"], GBOP_D["num_actions"]
+    arena = -((1 + R * A) // -8) * 8
+    states0 = states(dev, TREES)
+    obs0 = env.observe(params, states0)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    plan = lambda: gbop_plan_batch(env, params, states0, obs0, generator, device=dev, **GBOP_D)
+    plan()  # warm-up
+    reset_launches()
+    reset_sweeps()
+    times = timed_plans(plan)
+    launches = read_launches()
+    expect_launches(f"GBOP-D batch path, {PLANS} plans", launches, 0, 0)
+    report_plans(f"gbop_plan_batch B={TREES} expansions={R} arena={arena}", times, TREES * R,
+                 "expansions")
+    print(f"  {PLANS} plans: {sweep_line(TREES)}")
+    profile_plan(plan, host_events=False)
+
+    cpu = torch.device("cpu")
+    host = torch.Generator().manual_seed(8)
+    noise = [gumbel((TREES, arena, A), host, "cpu") for _ in range(R)]
+    got = plan_fields(*gbop_plan_batch(env, params, states0, obs0, noise=noise, device=dev,
+                                       **GBOP_D))
+    if not ((got["lengths"] >= 1) & (got["lengths"] <= 64)).all() \
+            or not np.isfinite(got["value_upper"]).all() \
+            or not (got["value_lower"] <= got["value_upper"] + KL_TOLERANCE).all() \
+            or not got["expanded"][:, 0].all():
+        raise AssertionError("GBOP-D batch plan produced invalid lengths or bounds")
+    states_cpu = states(cpu, CPU_SUBSET)
+    params_cpu = env.default_params(cpu)
+    want = plan_fields(*gbop_plan_batch(env, params_cpu, states_cpu,
+                                        env.observe(params_cpu, states_cpu),
+                                        noise=[g[:CPU_SUBSET] for g in noise], device=cpu,
+                                        **GBOP_D))
+    same_on_cpu("gbop_plan_batch", got, want,
+                ("actions", "lengths", "keys", "expanded", "children", "used"),
+                ("rewards", "value_lower", "value_upper"))
+    return launches
+
+
+def check_opd_batch_path(dev) -> dict:
+    """``opd_plan_batch`` on the CartPole starts of the other paths at the JAX
+    bench's budget; it launches no hand-written kernel (the JAX package
+    computes OPD outside any Pallas kernel too)."""
+    from rl_agents_torch.agents.tree_search.batch import opd_plan_batch
+    from rl_agents_torch.utils.noise import gumbel
+
+    env, params, states = cartpole_case(dev)
+    R, A, P = OPD["expansions"], OPD["num_actions"], 32
+    states0 = states(dev, TREES)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    plan = lambda: opd_plan_batch(env, params, states0, generator, device=dev, **OPD)
+    plan()  # warm-up
+    reset_launches()
+    reset_sweeps()
+    times = timed_plans(plan)
+    launches = read_launches()
+    expect_launches(f"OPD batch path, {PLANS} plans", launches, 0, 0)
+    report_plans(f"opd_plan_batch B={TREES} expansions={R}", times, TREES * R, "expansions")
+    print(f"  {PLANS} plans: {sweep_line(TREES)}")
+    profile_plan(plan)
+
+    cpu = torch.device("cpu")
+    noise = gumbel((P, A, TREES), torch.Generator().manual_seed(9), "cpu")
+    got = plan_fields(*opd_plan_batch(env, params, states0, None, noise=noise, device=dev, **OPD))
+    if not ((got["lengths"] >= 1) & (got["lengths"] <= P)).all() \
+            or not (got["count"][:, 0] == 1 + R * A).all() \
+            or not np.isfinite(got["value_upper"]).all() \
+            or not (got["value_lower"] <= got["value_upper"]).all():
+        raise AssertionError("OPD batch plan produced invalid lengths, counts or bounds")
+    want = plan_fields(*opd_plan_batch(env, env.default_params(cpu), states(cpu, CPU_SUBSET), None,
+                                       noise=noise[..., :CPU_SUBSET], device=cpu, **OPD))
+    same_on_cpu("opd_plan_batch", got, want,
+                ("actions", "lengths", "parent", "depth", "children", "done", "leaf", "count"),
+                ("reward", "value_lower", "value_upper"))
+    return launches
+
+
 def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan: int,
                      kl_bound_indexed_per_plan: int) -> dict:
     """One episode through ``load_environment`` / ``load_agent`` /
@@ -627,6 +946,7 @@ def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan
                             training=False, sim_seed=0)
     reset_launches()
     reset_newton()
+    reset_sweeps()
     started = time.time()
     evaluation.test()
     torch.cuda.synchronize()
@@ -634,10 +954,13 @@ def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan
     launches = read_launches()
     episodes_file = evaluation.run_directory / Evaluation.EPISODES_FILE
     episode = json.loads(episodes_file.read_text().splitlines()[-1])
-    print(f"{name} agent path: budget {agent.config['budget']} "
-          f"({agent.config['episodes']} episodes x horizon {agent.config['horizon']}), "
+    sizes = (f"{agent.config['episodes']} episodes x horizon {agent.config['horizon']}"
+             if "episodes" in agent.config
+             else f"{agent.config['budget'] // env.action_space.n} expansions")
+    print(f"{name} agent path: budget {agent.config['budget']} ({sizes}), "
           f"return {episode['total_reward']!r} in {episode['length']} steps, {seconds!r} s "
-          f"({seconds / episode['length']!r} s per step), launches {launches}; {newton_line()}")
+          f"({seconds / episode['length']!r} s per step), launches {launches}; {newton_line()}; "
+          f"{sweep_line(1)}")
     if not np.isfinite(episode["total_reward"]) or episode["length"] < 1:
         raise AssertionError(f"{name} agent path: invalid episode {episode}")
     expect_launches(f"{name} agent path", launches, kl_bound_per_plan * episode["length"],
@@ -674,29 +997,50 @@ def main():
     cartpole["max_episode_steps"] = AGENT_MAX_STEPS
     paths = {}
     phase("4. OLOP batch path")
-    paths["olop_batch_5_plans"] = check_olop_batch_path(dev)
+    paths["olop_batch_plans"] = check_olop_batch_path(dev)
     phase("5. OLOP agent path")
     # one kl_bound_indexed_ launch per planning episode
     paths["olop_agent"] = check_agent_path(dev, "OLOPAgent", cartpole, dict(AGENT_CONFIG), 0,
                                            allocation(AGENT_CONFIG["budget"], GAMMA)[0])
     phase("6. MCTS batch path")
-    paths["mcts_batch_5_plans"] = check_mcts_batch_path(dev)
+    paths["mcts_batch_plans"] = check_mcts_batch_path(dev)
     phase("7. MCTS agent path")
     paths["mcts_agent"] = check_agent_path(dev, "MCTSAgent", cartpole,
                                            CONFIGS / "CartPoleEnv" / "MCTSAgent.json", 0, 0)
     phase("8. MDP-GapE batch path")
-    paths["mdp_gape_batch_5_plans"] = check_gape_batch_path(dev)
+    paths["mdp_gape_batch_plans"] = check_gape_batch_path(dev)
     phase("9. MDP-GapE agent path")
+    garnet = json.loads((CONFIGS / "FiniteMDPEnv" / "env_garnet.json").read_text())
+    garnet["max_episode_steps"] = GARNET_AGENT_STEPS
     paths["mdp_gape_agent"] = check_agent_path(
-        dev, "MDPGapEAgent", CONFIGS / "FiniteMDPEnv" / "env_garnet.json", CONFIGS / "FiniteMDPEnv" / "agents" / "mdp-gape.json",
+        dev, "MDPGapEAgent", garnet, CONFIGS / "FiniteMDPEnv" / "agents" / "mdp-gape.json",
         GAPE_KL_LAUNCHES, 0)
+    phase("10. stochastic GBOP batch path")
+    if allocation(SAILING_BUDGET, SAILING_GAMMA) != (GBOP["episodes"], GBOP["horizon"]):
+        raise AssertionError("gbop.json's budget no longer splits into 3 episodes x horizon 55")
+    paths["gbop_stochastic_batch_plans"] = check_gbop_batch_path(dev)
+    phase("11. GBOP-D batch path")
+    paths["gbop_d_batch_plans"] = check_gbop_d_batch_path(dev)
+    phase("12. OPD batch path")
+    paths["opd_batch_plans"] = check_opd_batch_path(dev)
+    phase("13. Sailing agent paths")
+    sailing = json.loads((CONFIGS / "SailingEnv" / "env.json").read_text())
+    sailing["max_episode_steps"] = SAILING_AGENT_STEPS
+    agents = CONFIGS / "SailingEnv" / "agents"
+    paths["gbop_stochastic_agent"] = check_agent_path(
+        dev, "StochasticGraphBasedPlannerAgent", sailing, agents / "gbop.json",
+        GBOP_KL_LAUNCHES, 0)
+    paths["gbop_d_agent"] = check_agent_path(dev, "GraphBasedPlannerAgent", sailing,
+                                             agents / "gbop-d.json", 0, 0)
+    paths["opd_agent"] = check_agent_path(dev, "DeterministicPlannerAgent", sailing,
+                                          agents / "opd.json", 0, 0)
     for kernel in kernels:
         kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         if kernel["launches"] == 0:
             raise AssertionError(f"no path launched {kernel['name']}")
 
-    phase("10. summary")
+    phase("14. summary")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,15 @@ place of the per-tree keys.
 """
 from __future__ import annotations
 
+from rl_agents_torch.agents.tree_search.deterministic import (  # noqa: F401 (re-export)
+    opd_plan_batch,
+)
+from rl_agents_torch.agents.tree_search.graph_based import gbop_plan
+from rl_agents_torch.agents.tree_search.graph_based_stochastic import gbop_stochastic_plan
 from rl_agents_torch.agents.tree_search.mcts import mcts_plan_batch  # noqa: F401 (re-export)
 from rl_agents_torch.agents.tree_search.mdp_gape import mdp_gape_plan
 from rl_agents_torch.agents.tree_search.olop import olop_plan
+from rl_agents_torch.agents.tree_search.state_aware import state_aware_plan
 
 
 def olop_plan_batch(env, params, states0, generator=None, **kw):
@@ -24,3 +30,22 @@ def mdp_gape_plan_batch(env, params, states0, generator=None, **kw):
     """Batched MDP-GapE (reference: mdp_gape.py:11-344). Returns ``(best
     action [B], episodes_used [B], GapETree)``."""
     return mdp_gape_plan(env, params, states0, generator, **kw)
+
+
+def gbop_plan_batch(env, params, states0, obs0, generator=None, **kw):
+    """Batched GBOP-D (reference: graph_based.py:12-151). Each tree owns its
+    obs-key array along the batch axis. Returns ``(actions [B, P],
+    lengths [B], Graph)``."""
+    return gbop_plan(env, params, states0, obs0, generator, **kw)
+
+
+def gbop_stochastic_plan_batch(env, params, states0, obs0, generator=None, **kw):
+    """Batched stochastic GBOP (reference: graph_based_stochastic.py:15-361).
+    Returns ``(action [B], StochasticGraph)``."""
+    return gbop_stochastic_plan(env, params, states0, obs0, generator, **kw)
+
+
+def state_aware_plan_batch(env, params, states0, obs0, generator=None, **kw):
+    """Batched state-aware OPD (reference: state_aware.py:10-137). Returns
+    ``(actions [B, P], lengths [B], StateAwareTree)``."""
+    return state_aware_plan(env, params, states0, obs0, generator, **kw)

@@ -36,6 +36,7 @@ from rl_agents_torch.agents.tree_search.common import (
 from rl_agents_torch.envs.base import FunctionalEnv, params_to
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import fma
+from rl_agents_torch.utils.noise import gumbel, noise_tensor  # noqa: F401 (re-exported)
 
 
 class MCTSTree(NamedTuple):
@@ -60,22 +61,6 @@ def make_prior_fn(policy_config: dict, num_actions: int) -> torch.Tensor:
     else:
         raise ValueError(f"Unknown policy type {ptype}")
     return torch.tensor(probs, dtype=torch.float32)
-
-
-def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise of ``shape`` on ``device``, drawn from
-    ``generator`` on the generator's own device."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=generator.device).clamp(min=tiny)
-    return (-torch.log(-torch.log(u))).to(device)
-
-
-def noise_tensor(noise, device) -> torch.Tensor:
-    """Injected noise (a tensor or an array-like, possibly read-only) as a
-    float32 tensor on ``device``."""
-    if not isinstance(noise, torch.Tensor):
-        noise = torch.tensor(np.asarray(noise, dtype=np.float32))
-    return noise.to(device=device, dtype=torch.float32)
 
 
 def discount_table(gamma: float, size: int, device) -> torch.Tensor:

@@ -67,13 +67,15 @@ class GapETree(NamedTuple):
 def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | None,
                   num_actions: int, episodes: int, horizon: int, gamma: float, accuracy: float,
                   confidence: float, transition_threshold_coeff: float, width: int = 2,
-                  noise=None, device="cuda"):
+                  noise=None, env_noise=None, device="cuda"):
     """Plan B trees at once from ``states0`` (a state NamedTuple with a leading
     batch dim). Returns ``(best action [B], episodes_used [B], GapETree)``.
 
     ``noise`` is Gumbel noise ``[episodes + 1, H, B, A]`` that breaks the ties
     of the optimistic action below the root; without it, it is drawn from
-    ``generator``, which also draws the next states of a stochastic env.
+    ``generator``. ``env_noise`` is the env's own noise for every step,
+    ``[episodes + 1, H, B, ...]`` (Gumbel ``[..., K]`` for a stochastic finite
+    MDP); without it the env draws from ``generator``.
     """
     device = resolve_device(device)
     params = params_to(params, device)
@@ -103,6 +105,8 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
         noise = noise_tensor(noise, device)
     elif generator is None:
         raise ValueError("mdp_gape_plan needs a generator or noise")
+    if env_noise is not None:
+        env_noise = noise_tensor(env_noise, device)
 
     def init_upper(depth):
         return upper_table[(H - depth).clamp(min=0)]
@@ -235,7 +239,8 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
             optimistic = (torch.where(ties, 0.0, -torch.inf) + g[h]).argmax(dim=1)
             action = selected if h == 0 else optimistic
             chance = ch.gather(1, action[:, None]).squeeze(1).clamp(min=0)
-            out = env.step(params, state, action, generator)
+            out = env.step(params, state, action, generator,
+                           None if env_noise is None else env_noise[episode, h])
 
             # next-state slot by obs key (mdp_gape.py:272-286)
             okey = obs_key(out.obs)

@@ -6,7 +6,11 @@ arrays, e.g. ``CartPoleParams/State``, ``MDPParams/State``, or a garnet's
 ``MDPParams``) into this package's tensors; ``tree_from_numpy`` does the same
 for a tree arena (``OLOPTree``, ``MCTSTree``, ``GapETree``), whose fields are
 ``[N, ...]`` for one JAX tree and ``[B, N, ...]`` under ``vmap``, and gives the
-single tree its leading batch axis; ``tree_to_numpy`` goes the other way for
+single tree its leading batch axis; ``graph_from_numpy`` and
+``opd_tree_from_numpy`` do it for the arenas that nest an env-state NamedTuple
+and a hash table (``Graph``, ``StochasticGraph``, ``OPDTree``,
+``StateAwareTree``), so that a tree grown by the JAX package can be continued,
+re-rooted or backed up here; ``tree_to_numpy`` goes the other way for
 comparisons.
 Tests and ``chip_smoke.py`` use this module; the planning path does not.
 """
@@ -46,11 +50,45 @@ def tree_from_numpy(namedtuple_cls, arrays, device="cuda", batched: bool = True)
     return namedtuple_cls(*(t.unsqueeze(0) for t in tree))
 
 
+def graph_from_numpy(namedtuple_cls, arrays, state_cls, device="cuda", batched: bool = True):
+    """A graph or tree arena of the JAX package whose ``states`` field is an
+    env-state NamedTuple (``state_cls`` names the port's) and whose ``table``
+    field, where it has one, is a hash table. ``batched=False`` as in
+    ``tree_from_numpy``."""
+    from rl_agents_torch.ops.hashing import HashTable
+
+    device = resolve_device(device)
+    nested = {"states": state_cls, "table": HashTable}
+    values = arrays._asdict() if hasattr(arrays, "_asdict") else dict(arrays)
+
+    def leaf(value):
+        tensor = _to_tensor(value, device)
+        return tensor if batched else tensor.unsqueeze(0)
+
+    def field(name):
+        if name in nested:
+            inner = values[name]
+            inner = inner._asdict() if hasattr(inner, "_asdict") else dict(inner)
+            return nested[name](**{k: leaf(inner[k]) for k in nested[name]._fields})
+        return leaf(values[name])
+
+    return namedtuple_cls(**{name: field(name) for name in namedtuple_cls._fields})
+
+
+def opd_tree_from_numpy(namedtuple_cls, arrays, state_cls, device="cuda", batched: bool = True):
+    """``graph_from_numpy`` under the name of the tree planners' arenas
+    (``OPDTree``, ``StateAwareTree``)."""
+    return graph_from_numpy(namedtuple_cls, arrays, state_cls, device=device, batched=batched)
+
+
 def tree_to_numpy(tree):
     """NamedTuple of tensors -> the same NamedTuple of numpy arrays, integer
     fields as int32 (the JAX package's arena dtype) and 32-bit hash keys
-    (fields named ``*keys``) as uint32."""
+    (fields named ``*keys``) as uint32. A field that is itself a NamedTuple
+    (env states, a hash table) is converted likewise."""
     def convert(name, t):
+        if isinstance(t, tuple):
+            return tree_to_numpy(t)
         array = t.detach().cpu().numpy()
         if array.dtype.kind in "iu":
             return array.astype(np.uint32 if name.endswith("keys") else np.int32)

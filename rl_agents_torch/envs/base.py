@@ -3,8 +3,11 @@
 Port of ``rl_agents_tpu/envs/base.py``. An environment is a pair of pure
 functions over NamedTuples of tensors that carry a leading batch dimension:
 
-    reset(params, generator, batch)         -> (state, obs)
-    step(params, state, action, generator)  -> StepOut
+    reset(params, generator, batch)                -> (state, obs)
+    step(params, state, action, generator, noise)  -> StepOut
+
+A stochastic ``step`` takes its randomness from ``noise`` when the caller
+injects it, and draws it from ``generator`` otherwise.
 
 "Forking" a simulation is carrying the state value, and one ``step`` over
 ``[B]`` states replaces the JAX package's ``vmap``. ``EnvHandle`` adapts the
@@ -72,11 +75,30 @@ class FunctionalEnv:
     def reset(self, params, generator: torch.Generator, batch: int = 1) -> Tuple[Any, Any]:
         raise NotImplementedError
 
-    def step(self, params, state, action, generator: torch.Generator | None = None) -> StepOut:
+    def step(self, params, state, action, generator: torch.Generator | None = None,
+             noise=None) -> StepOut:
+        """One transition of ``[B]`` states. ``noise`` is the env's own random
+        input for the step (its shape and law are the env's); without it a
+        stochastic env draws it from ``generator``."""
         raise NotImplementedError
 
     def observe(self, params, state):
         raise NotImplementedError
+
+    def transition(self, params, state, action, generator: torch.Generator | None = None,
+                   noise=None) -> StepOut:
+        """Like ``step`` but exempt from producing a real observation:
+        open-loop planners (OPD, MCTS rollouts) never read it, and an env with
+        an expensive observation may override this to skip it. Default: the
+        full step."""
+        return self.step(params, state, action, generator, noise)
+
+    def null_noise(self, batch: int, device):
+        """The ``noise`` that the deterministic planners (OPD, GBOP-D) step
+        the env with: they plan against one frozen outcome of every random
+        draw, the one the JAX package's all-zero PRNG key gives. None for an
+        env whose step is deterministic."""
+        return None
 
     @property
     def action_space(self) -> Discrete | Box:

@@ -65,7 +65,8 @@ class CartPoleEnv(FunctionalEnv):
     def observe(self, params, state: CartPoleState):
         return torch.stack([state.x, state.x_dot, state.theta, state.theta_dot], dim=-1)
 
-    def step(self, params: CartPoleParams, state: CartPoleState, action, generator=None) -> StepOut:
+    def step(self, params: CartPoleParams, state: CartPoleState, action, generator=None,
+             noise=None) -> StepOut:
         total_mass = params.masscart + params.masspole
         polemass_length = params.masspole * params.length
         force = torch.where(action == 1, params.force_mag, -params.force_mag)

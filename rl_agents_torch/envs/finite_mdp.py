@@ -8,10 +8,12 @@ share one params NamedTuple; the mode is static structure:
 * ``stochastic``:    transition[S, A, S] -> probability
 * ``sparse``:        next[S, A, K] indices + transition[S, A, K] probabilities
 
-Stochastic modes draw with ``torch.multinomial`` on the caller's generator,
-so they agree with the JAX package in distribution only. ``garnet`` draws its
-random MDP from a seeded ``torch.Generator`` too: for one seed it is another
-MDP than the JAX package's.
+Stochastic modes draw the next state as the JAX package does, as
+``argmax(log(max(p, 1e-30)) + g)`` with Gumbel noise ``g [B, K]``: injected by
+the caller (``noise=``), so that a test can replay the JAX package's own
+draws, or drawn from the caller's generator. ``garnet`` draws its random MDP
+from a seeded ``torch.Generator``: for one seed it is another MDP than the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from rl_agents_torch.envs.base import Discrete, EnvHandle, EnvSpec, FunctionalEnv, StepOut
 from rl_agents_torch.utils.device import resolve_device
+from rl_agents_torch.utils.noise import gumbel, noise_tensor
 
 
 class MDPParams(NamedTuple):
@@ -81,18 +84,34 @@ class FiniteMDPEnv(FunctionalEnv):
     def observe(self, params, state: MDPState):
         return state.s
 
-    def next_state(self, params: MDPParams, s, action, generator):
+    def next_state(self, params: MDPParams, s, action, generator, noise=None):
         if self.mode == "deterministic":
             return params.transition[s, action]
-        k = torch.multinomial(params.transition[s, action], 1, generator=generator).squeeze(1)
+        probs = params.transition[s, action]
+        if probs.shape[-1] == 1:  # one outcome: nothing to draw
+            k = torch.zeros_like(s)
+        else:
+            noise = gumbel(probs.shape, generator, probs.device) if noise is None \
+                else noise_tensor(noise, probs.device)
+            k = (torch.log(torch.clamp(probs, min=1e-30)) + noise).argmax(dim=-1)
         if self.mode == "stochastic":
             return k
         return params.next[s, action, k]
 
-    def step(self, params: MDPParams, state: MDPState, action, generator=None) -> StepOut:
+    def null_noise(self, batch: int, device):
+        """Zero Gumbel noise in the stochastic modes: the deterministic
+        planners see the most likely next state (the JAX package's null key
+        fixes one draw per number of outcomes instead)."""
+        if self.mode == "deterministic":
+            return None
+        outcomes = self.num_states if self.mode == "stochastic" else 1
+        return torch.zeros((batch, outcomes), dtype=torch.float32, device=device)
+
+    def step(self, params: MDPParams, state: MDPState, action, generator=None,
+             noise=None) -> StepOut:
         reward = torch.where(state.done, 0.0, params.reward[state.s, action])
         s_next = torch.where(state.done, state.s,
-                             self.next_state(params, state.s, action, generator))
+                             self.next_state(params, state.s, action, generator, noise))
         t = state.t + 1
         terminated = params.terminal[s_next] | state.done
         truncated = t >= self.max_episode_steps

@@ -21,15 +21,25 @@ logger = logging.getLogger(__name__)
 
 # name -> "module:Class", imported on first use
 AGENT_REGISTRY: Dict[str, str] = {
+    "DeterministicPlannerAgent":
+        "rl_agents_torch.agents.tree_search.deterministic:DeterministicPlannerAgent",
+    "GraphBasedPlannerAgent": "rl_agents_torch.agents.tree_search.graph_based:GraphBasedPlannerAgent",
     "MCTSAgent": "rl_agents_torch.agents.tree_search.mcts:MCTSAgent",
     "MDPGapEAgent": "rl_agents_torch.agents.tree_search.mdp_gape:MDPGapEAgent",
     "OLOPAgent": "rl_agents_torch.agents.tree_search.olop:OLOPAgent",
+    "StateAwarePlannerAgent": "rl_agents_torch.agents.tree_search.state_aware:StateAwarePlannerAgent",
+    "StochasticGraphBasedPlannerAgent":
+        "rl_agents_torch.agents.tree_search.graph_based_stochastic:StochasticGraphBasedPlannerAgent",
 }
 
 ENV_REGISTRY: Dict[str, str] = {
     "cartpole": "rl_agents_torch.envs.cartpole:make",
     "finite-mdp": "rl_agents_torch.envs.finite_mdp:make",
     "finite-mdp-v0": "rl_agents_torch.envs.finite_mdp:make",
+    "sailing-v0": "rl_agents_torch.envs.sailing:make",
+    "sailing-5-v0": "rl_agents_torch.envs.sailing:make",
+    "sailing-10-v0": "rl_agents_torch.envs.sailing:make",
+    "sailing-20-v0": "rl_agents_torch.envs.sailing:make",
 }
 
 

@@ -17,7 +17,8 @@ torch.set_num_threads(1)
 CONFIGS = Path(__file__).resolve().parent.parent / "scripts" / "configs"
 CONFIG_FILES = sorted(p.relative_to(CONFIGS).as_posix()
                       for p in [*CONFIGS.glob("CartPoleEnv/*.json"),
-                                *CONFIGS.glob("FiniteMDPEnv/**/*.json")])
+                                *CONFIGS.glob("FiniteMDPEnv/**/*.json"),
+                                *CONFIGS.glob("SailingEnv/**/*.json")])
 
 
 @pytest.mark.parametrize("relpath", CONFIG_FILES)
@@ -68,3 +69,22 @@ def test_agent_class_resolves_reference_paths_and_refuses_the_rest():
     assert gape.__module__ == "rl_agents_torch.agents.tree_search.mdp_gape"
     with pytest.raises(NotImplementedError, match="not yet ported"):
         agent_class("DQNAgent")
+
+
+@pytest.mark.parametrize("path,module", [
+    ("rl_agents.agents.tree_search.graph_based.GraphBasedPlannerAgent", "graph_based"),
+    ("rl_agents.agents.tree_search.graph_based_stochastic.StochasticGraphBasedPlannerAgent",
+     "graph_based_stochastic"),
+    ("rl_agents.agents.tree_search.deterministic.DeterministicPlannerAgent", "deterministic"),
+    ("rl_agents.agents.tree_search.state_aware.StateAwarePlannerAgent", "state_aware"),
+])
+def test_agent_class_resolves_the_graph_and_tree_planners(path, module):
+    cls = agent_class(f"<class '{path}'>")
+    assert cls is agent_class(path.rsplit(".", 1)[-1])
+    assert cls.__module__ == f"rl_agents_torch.agents.tree_search.{module}"
+    from rl_agents_tpu.factory import agent_class as jax_agent_class
+
+    reference = jax_agent_class(f"<class '{path}'>")
+    assert cls.__name__ == reference.__name__
+    defaults, reference_defaults = cls.default_config(), reference.default_config()
+    assert defaults == reference_defaults

@@ -215,3 +215,59 @@ def test_garnet_env_from_the_corpus_config_and_its_mdp_view():
     assert int(obs) in mdp.next[0, 1] and reward == float(mdp.reward[0, 1])
     loop = torch_mdp.make({}, device="cpu").mdp
     assert loop.mode == "deterministic" and loop.next_state(1, 1) == 3
+
+
+@pytest.mark.parametrize("mode", ["stochastic", "sparse"])
+def test_finite_mdp_stochastic_step_matches_jax_under_its_own_draws(mode):
+    """The next state is ``argmax(log(max(p, 1e-30)) + g)`` as
+    ``jax.random.categorical`` computes it: with JAX's Gumbel draws rebuilt
+    from the step keys and injected as ``noise``, the next states are equal."""
+    n = 512
+    if mode == "sparse":
+        env_j, params_j = jax_mdp.garnet(jax.random.PRNGKey(2), 16, 4, branching=3)
+        outcomes = 3
+    else:
+        probs = np.random.default_rng(0).dirichlet(np.ones(5), (5, 3))
+        probs[0, 0] = [0.0, 1.0, 0.0, 0.0, 0.0]
+        env_j, params_j = jax_mdp.params_from_config(
+            {"mode": mode, "transition": probs.tolist(), "reward": np.zeros((5, 3)).tolist()})
+        outcomes = 5
+    env_t = torch_mdp.FiniteMDPEnv(env_j.num_states, env_j.num_actions, mode=mode)
+    params_t = from_numpy(torch_mdp.MDPParams, jax.tree.map(np.asarray, params_j), device="cpu")
+    rng = np.random.default_rng(1)
+    state = jax_mdp.MDPState(s=rng.integers(0, env_j.num_states, n).astype(np.int32),
+                             t=np.zeros(n, np.int32), done=rng.random(n) < 0.1)
+    actions = rng.integers(0, env_j.num_actions, n)
+    keys = jax.random.split(jax.random.PRNGKey(3), n)
+    out_j = jax.vmap(env_j.step, in_axes=(None, 0, 0, 0))(
+        params_j, jax.tree.map(jnp.asarray, state), jnp.asarray(actions, jnp.int32), keys)
+    noise = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (outcomes,), jnp.float32))(keys))
+    out_t = env_t.step(params_t, from_numpy(torch_mdp.MDPState, state, device="cpu"),
+                       torch.as_tensor(actions), noise=noise)
+    np.testing.assert_array_equal(out_t.state.s.numpy(), np.asarray(out_j.state.s))
+    np.testing.assert_array_equal(out_t.reward.numpy(), np.asarray(out_j.reward))
+    assert len(np.unique(out_t.state.s.numpy())) > 3
+    with pytest.raises(ValueError, match="generator or injected noise"):
+        env_t.step(params_t, from_numpy(torch_mdp.MDPState, state, device="cpu"),
+                   torch.as_tensor(actions))
+
+
+def test_transition_defaults_to_step_and_null_noise_is_per_env():
+    env = torch_cartpole.CartPoleEnv()
+    params = env.default_params("cpu")
+    state, _ = env.reset(params, torch.Generator().manual_seed(0), batch=3)
+    action = torch.tensor([0, 1, 0])
+    stepped, moved = env.step(params, state, action), env.transition(params, state, action)
+    assert all(torch.equal(a, b) for a, b in zip(stepped.state, moved.state))
+    assert torch.equal(stepped.reward, moved.reward)
+    assert env.null_noise(3, "cpu") is None
+    assert torch_mdp.FiniteMDPEnv(4, 2).null_noise(3, "cpu") is None
+    # a stochastic finite MDP under the deterministic planners: the most likely next state
+    env_t, params_t = torch_mdp.params_from_config(
+        {"mode": "stochastic", "transition": [[[0.3, 0.7], [0.9, 0.1]]] * 2,
+         "reward": [[0, 0]] * 2}, device="cpu")
+    state = torch_mdp.MDPState(s=torch.zeros(2, dtype=torch.int64),
+                               t=torch.zeros(2, dtype=torch.int64),
+                               done=torch.zeros(2, dtype=torch.bool))
+    out = env_t.transition(params_t, state, torch.tensor([0, 1]), noise=env_t.null_noise(2, "cpu"))
+    assert out.state.s.tolist() == [1, 0]

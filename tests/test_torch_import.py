@@ -47,7 +47,7 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 19
+    assert int(proc.stdout.strip()) >= 25
 
 
 def test_kl_bound_on_cpu_never_touches_the_build(monkeypatch):
@@ -77,9 +77,18 @@ def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
     from rl_agents_torch.agents.tree_search.batch import (
+        gbop_plan_batch,
+        gbop_stochastic_plan_batch,
         mcts_plan_batch,
         mdp_gape_plan_batch,
         olop_plan_batch,
+        opd_plan_batch,
+        state_aware_plan_batch,
+    )
+    from rl_agents_torch.agents.tree_search.deterministic import (
+        opd_plan,
+        opd_plan_batch_vmap,
+        opd_plan_continue,
     )
     from rl_agents_torch.agents.tree_search.mcts import mcts_plan, mcts_plan_continue
     from rl_agents_torch.envs.cartpole import CartPoleEnv
@@ -102,9 +111,13 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         olop_plan_batch(CartPoleEnv(), env.params, env.state, num_actions=2, episodes=1,
                         horizon=1, gamma=0.9, threshold_coeff=4.0)
-    for name in ("MCTSAgent", "MDPGapEAgent"):
+    for name in ("MCTSAgent", "MDPGapEAgent", "GraphBasedPlannerAgent",
+                 "StochasticGraphBasedPlannerAgent", "DeterministicPlannerAgent",
+                 "StateAwarePlannerAgent"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             load_agent({"__class__": name, "budget": 10}, env)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_environment({"id": "sailing-v0"})
     probs = torch.ones(2) / 2
     generator = torch.Generator().manual_seed(0)
     mcts_kw = dict(num_actions=2, episodes=1, horizon=1, gamma=0.9, temperature=1.0)
@@ -120,6 +133,23 @@ def test_entry_points_raise_without_a_card():
         mdp_gape_plan_batch(CartPoleEnv(), env.params, env.state, generator, num_actions=2,
                             episodes=1, horizon=1, gamma=0.9, accuracy=0.0, confidence=0.9,
                             transition_threshold_coeff=0.1)
+    obs = CartPoleEnv().observe(env.params, env.state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gbop_plan_batch(CartPoleEnv(), env.params, env.state, obs, generator, num_actions=2,
+                        expansions=1, gamma=0.9)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gbop_stochastic_plan_batch(CartPoleEnv(), env.params, env.state, obs, generator,
+                                   num_actions=2, episodes=1, horizon=1, gamma=0.9, accuracy=0.01,
+                                   reward_threshold_coeff=1.0, transition_threshold_coeff=0.1)
+    opd_kw = dict(num_actions=2, expansions=1, gamma=0.9)
+    for planner in (opd_plan, opd_plan_batch, opd_plan_batch_vmap):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            planner(CartPoleEnv(), env.params, env.state, generator, **opd_kw)
+    tree = opd_plan(CartPoleEnv(), env.params, env.state, generator, device="cpu", **opd_kw)[2]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        opd_plan_continue(CartPoleEnv(), env.params, tree, env.state, generator, **opd_kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        state_aware_plan_batch(CartPoleEnv(), env.params, env.state, obs, generator, **opd_kw)
 
 
 def test_agents_not_yet_ported_name_what_is_missing():
@@ -128,8 +158,26 @@ def test_agents_not_yet_ported_name_what_is_missing():
     env = load_environment({"id": "cartpole"}, device="cpu")
     with pytest.raises(NotImplementedError, match="mcts_closed_loop"):
         load_agent({"__class__": "MCTSAgent", "closed_loop": True}, env, device="cpu")
-    for name in ("DeterministicPlannerAgent", "GraphBasedPlannerAgent", "DQNAgent"):
+    for name in ("DiscreteRobustPlannerAgent", "IntervalRobustPlannerAgent", "BRUEAgent",
+                 "ValueIterationAgent", "DQNAgent"):
         with pytest.raises(NotImplementedError, match=name):
             load_agent({"__class__": name}, env, device="cpu")
-    with pytest.raises(NotImplementedError, match="highway"):
-        load_environment({"id": "highway-v0"}, device="cpu")
+    for env_id in ("highway-v0", "gridenv-v0", "sailing-8-v0"):
+        with pytest.raises(NotImplementedError, match=env_id):
+            load_environment({"id": env_id}, device="cpu")
+    from rl_agents_torch.agents.tree_search.deterministic import opd_plan_parity
+
+    with pytest.raises(NotImplementedError, match="opd_plan_parity"):
+        opd_plan_parity()
+
+
+def test_the_graph_and_tree_planners_and_sailing_ids_are_registered():
+    from rl_agents_torch.factory import AGENT_REGISTRY, ENV_REGISTRY, load_agent, load_environment
+
+    assert {"GraphBasedPlannerAgent", "StochasticGraphBasedPlannerAgent",
+            "DeterministicPlannerAgent", "StateAwarePlannerAgent"} <= set(AGENT_REGISTRY)
+    assert {"sailing-v0", "sailing-5-v0", "sailing-10-v0", "sailing-20-v0"} <= set(ENV_REGISTRY)
+    env = load_environment({"id": "sailing-5-v0"}, device="cpu")
+    for name in ("GraphBasedPlannerAgent", "DeterministicPlannerAgent"):
+        agent = load_agent({"__class__": name, "budget": 16, "gamma": 0.9}, env, device="cpu")
+        assert agent.act(env.reset(seed=0)[0]) in range(8)

@@ -8,8 +8,9 @@ equal, the confidence and value bounds within 1e-5 (the KL and Newton solves'
 ``log`` differs by ulps between XLA and torch). The port sizes its decision
 arena for the ``episodes + 1`` episodes the loop runs, the JAX package for
 fewer: the comparison takes the JAX arena's length of the port's. On a
-stochastic MDP the next states come from different generators and the root
-action is compared in distribution."""
+stochastic MDP the env's Gumbel draws are rebuilt from the keys too and
+injected (``env_noise``), and the plans agree in the same way; with the port's
+own generator the root action is compared in distribution."""
 import json
 from pathlib import Path
 
@@ -120,6 +121,24 @@ def _jax_noise(keys, episodes, horizon, num_actions):
     return np.transpose(np.asarray(jax.jit(jax.vmap(per_tree))(keys)), (1, 2, 0, 3))
 
 
+def _jax_env_noise(keys, episodes, horizon, outcomes):
+    """The Gumbel draws of each tree's next state
+    (rl_agents_tpu/envs/finite_mdp.py:87 with the step key ``ks`` of
+    mdp_gape.py:207,223), ``[episodes + 1, H, B, K]``."""
+    def per_tree(key):
+        out = []
+        for _ in range(episodes + 1):
+            key, chain = jax.random.split(key)
+            row = []
+            for _ in range(horizon):
+                chain, _, ks = jax.random.split(chain, 3)
+                row.append(jax.random.gumbel(ks, (outcomes,), jnp.float32))
+            out.append(jnp.stack(row))
+        return jnp.stack(out)
+
+    return np.transpose(np.asarray(jax.jit(jax.vmap(per_tree))(keys)), (1, 2, 0, 3))
+
+
 def _jax_plan(case, keys):
     (env_j, params_j, states_j), _, plan = case
     return jax.vmap(lambda s, k: jax_gape_plan(env_j, params_j, s, k, **plan))(
@@ -158,9 +177,42 @@ def test_plans_match_with_jax_draws(name):
     assert np.ptp(np.asarray(tree_j.d_mu_ucb)) > 0.05  # the KL solve did real work
 
 
+def _assert_trees_match(tree_t, tree_j):
+    tree_np = tree_to_numpy(tree_t)
+    sizes = {"d": tree_j.d_parent.shape[1], "c": tree_j.c_parent.shape[1]}
+    for field in EXACT_FIELDS + BOUND_FIELDS:
+        got, want = getattr(tree_np, field), np.asarray(getattr(tree_j, field))
+        if got.ndim >= 2:
+            got = got[:, :sizes[field[0]]]
+        if field in EXACT_FIELDS:
+            np.testing.assert_array_equal(got, want, err_msg=field)
+        else:
+            np.testing.assert_allclose(got, want, atol=ATOL, err_msg=field)
+
+
+def test_stochastic_garnet_plans_match_with_jax_draws():
+    """Branching 2: with the tie-breaking and the next-state Gumbel draws both
+    rebuilt from each tree's key, the chosen action, ``episodes_used`` and
+    every integer arena field equal the JAX package's, ``d_cum_reward`` too,
+    and the bounds agree within 1e-5."""
+    case = _garnet_case(2, GARNET_PLAN)
+    _, (env_t, params_t, states_t), plan = case
+    keys = jax.random.split(jax.random.PRNGKey(9), B)
+    best_j, used_j, tree_j = _jax_plan(case, keys)
+    assert int(np.asarray(tree_j.d_used).max()) <= tree_j.d_parent.shape[1]
+    noise = _jax_noise(keys, plan["episodes"], plan["horizon"], plan["num_actions"])
+    env_noise = _jax_env_noise(keys, plan["episodes"], plan["horizon"], 2)
+    best_t, used_t, tree_t = torch_gape_batch(env_t, params_t, states_t, noise=noise,
+                                              env_noise=env_noise, device="cpu", **plan)
+    np.testing.assert_array_equal(best_t.numpy(), np.asarray(best_j))
+    np.testing.assert_array_equal(used_t.numpy(), np.asarray(used_j))
+    _assert_trees_match(tree_t, tree_j)
+    assert (np.asarray(tree_j.c_n_children).max(axis=1) == 2).all()  # both next states were seen
+
+
 def test_stochastic_garnet_root_action_distribution():
-    """Branching 2: next states are drawn, by ``torch.multinomial`` here and
-    ``jax.random.categorical`` there, so 64 trees from one state are compared
+    """Branching 2: next states are drawn from a ``torch.Generator`` here and
+    from ``jax.random`` keys there, so 64 trees from one state are compared
     by the share of each chosen action (tolerance 0.25 on shares whose
     standard error is about 0.06)."""
     batch = 64

@@ -131,3 +131,49 @@ def test_corpus_configs_load_for_both_new_agents():
     agent = torch_factory.load_agent(CONFIGS / "FiniteMDPEnv" / "agents" / "mdp-gape.json", env,
                                      device="cpu")
     assert (agent.config["episodes"], agent.config["horizon"]) == (20, 5)
+
+
+SAILING = CONFIGS / "SailingEnv"
+
+
+@pytest.mark.parametrize("agent_file", ["gbop.json", "gbop-d.json", "opd.json"])
+def test_cli_runs_the_sailing_planner_study_on_the_cpu(tmp_path, agent_file):
+    """``SailingEnv/env.json`` with ``agents/{gbop,gbop-d,opd}.json`` through
+    ``python -m rl_agents_torch.experiments``: the corpus's agent configs as
+    they are, the env config with its episode cut to a few steps (the config's
+    own episode is 160 steps of a planner at budget 200)."""
+    steps = 3
+    env_config = json.loads((SAILING / "env.json").read_text())
+    env_config["max_episode_steps"] = steps
+    env_path, out = tmp_path / "env.json", tmp_path / "out"
+    env_path.write_text(json.dumps(env_config))
+    proc = subprocess.run(
+        [sys.executable, "-m", "rl_agents_torch.experiments", "evaluate", str(env_path),
+         str(SAILING / "agents" / agent_file), "--test", "--episodes", "1", "--seed", "0",
+         "--device", "cpu", "--directory", str(out)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    runs = list(out.glob("run_*"))
+    assert len(runs) == 1
+    episodes = [json.loads(line) for line in (runs[0] / "episodes.jsonl").read_text().splitlines()]
+    assert len(episodes) == 1 and episodes[0]["length"] == steps
+    assert -steps <= episodes[0]["total_reward"] < 0  # three moves away from the start corner
+
+
+def test_sailing_corpus_configs_load_with_the_sizes_of_the_jax_package():
+    env = torch_factory.load_environment(SAILING / "env.json", device="cpu")
+    env_j = jax_factory.load_environment(SAILING / "env.json")
+    assert env.functional.size == env_j.functional.size == 8
+    assert env.functional.max_episode_steps == env_j.functional.max_episode_steps == 160
+    gbop = torch_factory.load_agent(SAILING / "agents" / "gbop.json", env, device="cpu")
+    gbop_j = jax_factory.load_agent(SAILING / "agents" / "gbop.json", env_j)
+    for key in ("episodes", "horizon", "accuracy", "max_next_states_count", "upper_bound"):
+        assert gbop.config[key] == gbop_j.config[key], key
+    assert (gbop.config["episodes"], gbop.config["horizon"]) == (3, 55)
+    for name in ("gbop-d.json", "opd.json"):
+        agent = torch_factory.load_agent(SAILING / "agents" / name, env, device="cpu")
+        agent_j = jax_factory.load_agent(SAILING / "agents" / name, env_j)
+        assert type(agent).__name__ == type(agent_j).__name__
+        assert agent.config["budget"] == agent_j.config["budget"] == 200
+        assert agent.config["gamma"] == agent_j.config["gamma"] == 0.99
