@@ -14,8 +14,8 @@ non-zero without its final line:
    OLOP-like statistics and on the inputs that MDP-GapE plans passed to it
    (recorded from the last episode of a 4096-tree plan and of a 1-tree plan
    at the confidence 1.0 of ``mdp-gape.json``, and of a 4096-tree plan at the
-   agent's default confidence 0.9) and that a stochastic GBOP plan on Sailing
-   passed to it (its reward sums are negative), and its indexed form
+   agent's default confidence 0.9) and that stochastic GBOP plans on Sailing
+   (its reward sums are negative) and on highway passed to it, and its indexed form
    ``kl_bound_indexed_`` on a ``[4096, 369]`` arena at the planner's path of
    8 x 4096 nodes;
 4. the OLOP batch path at full width: ``olop_plan_batch`` on CartPole, 4096
@@ -29,7 +29,7 @@ non-zero without its final line:
    trees, 23 x 8, gamma 0.95, temperature 40, its first 64 trees checked
    against the CPU plan under the same noise; it launches no kernel;
 7. the MCTS agent path: ``CartPoleEnv/MCTSAgent.json`` for one episode, cut to
-   15 steps as the OLOP agent's;
+   10 steps as the OLOP agent's;
 8. the MDP-GapE batch path: ``mdp_gape_plan_batch``, 4096 trees on the garnet
    MDP of ``FiniteMDPEnv/env_garnet.json`` at the sizes of
    ``FiniteMDPEnv/agents/mdp-gape.json`` (confidence 1.0) and again at the
@@ -38,7 +38,7 @@ non-zero without its final line:
    and the first 64 trees of a plan on a deterministic garnet checked against
    the CPU plan under the same noise;
 9. the MDP-GapE agent path: ``mdp-gape.json`` on ``env_garnet.json`` for one
-   episode, cut to 10 steps;
+   episode, cut to 5 steps;
 10. the stochastic GBOP batch path: ``gbop_stochastic_plan_batch`` on the
     Sailing domain (``SailingEnv/env.json``, size 8), 4096 trees from random
     starts at the sizes of ``SailingEnv/agents/gbop.json`` (3 episodes x
@@ -53,7 +53,19 @@ non-zero without its final line:
     expansions; no kernel;
 13. the Sailing agent paths: ``gbop.json``, ``gbop-d.json`` and ``opd.json`` on
     ``SailingEnv/env.json``, a cut episode each;
-14. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
+14. the highway batch paths at the full width of ``HighwayEnv/env.json`` (15
+    vehicles on 4 lanes), at the JAX bench's sizes (``bench.py:242-367``):
+    MCTS (4096 trees, 23 x 8), OPD (4096 trees, 46 expansions), GBOP-D (4096
+    trees, 12 expansions), stochastic GBOP (512 trees, 8 x 4, 64 dense
+    ``kl_bound`` launches a plan); KL-OLOP at ``kl-olop.json``'s budget (4096
+    trees, 72 x 6, one ``kl_bound_indexed_`` launch per episode) and DROP on
+    ``merge-v0`` (4096 trees x 2 models, 40 expansions); each timed, profiled
+    and its first 64 trees held against the CPU plan under the same noise;
+15. the highway agent paths, 10 steps each: ``DeterministicPlannerAgent.json``,
+    ``MCTSAgent.json``, ``OLOPAgent/kl-olop.json`` and
+    ``IntervalRobustPlannerAgent/baseline.json`` on ``HighwayEnv/env.json``,
+    and ``DiscreteRobustPlannerAgent.json`` on ``MergeEnv/env.json``;
+16. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
     last line.
 
 Every path is driven with every kernel launch counter set to 0 just before
@@ -88,8 +100,8 @@ ARENA = 1 + EPISODES * HORIZON * 2  # nodes per tree of the CartPole plan (2 act
 DENSE_LARGE = 1 << 24  # the dense form where bytes should bind
 CPU_SUBSET = 64
 AGENT_CONFIG = {"__class__": "OLOPAgent", "budget": 184, "gamma": GAMMA}
-AGENT_MAX_STEPS = 15
-GARNET_AGENT_STEPS = 10  # of the 20 of env_garnet.json
+AGENT_MAX_STEPS = 10
+GARNET_AGENT_STEPS = 5  # of the 20 of env_garnet.json
 PLANS = 3  # timed plans of each batch path
 CONFIGS = REPO / "scripts" / "configs"
 MCTS_TEMPERATURE = 40.0
@@ -122,7 +134,32 @@ GBOP_D = dict(num_actions=SAILING_ACTIONS, expansions=SAILING_BUDGET // SAILING_
               gamma=SAILING_GAMMA, accuracy=1e-2)
 # OPD on CartPole at the JAX bench's budget: 230 / 2 actions = 115 expansions
 OPD = dict(num_actions=2, expansions=115, gamma=GAMMA)
-SAILING_AGENT_STEPS = 10
+SAILING_AGENT_STEPS = 5
+# The highway family at the full width of HighwayEnv/env.json (15 vehicles, 4
+# lanes, 40 steps) and 5 meta-actions. The JAX bench's highway lines
+# (bench.py:242-367): MCTS at the headline's 23 x 8, OPD with 46 expansions
+# and a plan of 8, GBOP-D with 12 expansions, stochastic GBOP on 512 trees at
+# 8 episodes x horizon 4 with both threshold coefficients 2 (one next-state
+# slot: 64 dense kl_bound launches a plan); KL-OLOP at kl-olop.json's budget
+# 500 and gamma 0.7 (72 episodes x horizon 6, threshold 2 log(time), uniform
+# continuation: one kl_bound_indexed_ launch per episode); DROP on merge-v0
+# with the two models of MergeEnv/agents/DiscreteRobustPlannerAgent.json at its
+# budget 200 (40 expansions) and gamma 0.9
+HW_ACTIONS = 5
+HW_MCTS = dict(num_actions=HW_ACTIONS, episodes=EPISODES, horizon=HORIZON, gamma=GAMMA,
+               temperature=MCTS_TEMPERATURE)
+HW_OPD = dict(num_actions=HW_ACTIONS, expansions=46, gamma=GAMMA, plan_capacity=8)
+HW_GBOP_D = dict(num_actions=HW_ACTIONS, expansions=12, gamma=GAMMA, accuracy=1e-2)
+HW_GBOP = dict(num_actions=HW_ACTIONS, episodes=8, horizon=4, gamma=GAMMA, accuracy=1e-2,
+               reward_threshold_coeff=2.0, transition_threshold_coeff=2.0)
+HW_GBOP_TREES = 512
+HW_GBOP_KL_LAUNCHES = 2 * HW_GBOP["episodes"] * HW_GBOP["horizon"]
+HW_OLOP_BUDGET, HW_OLOP_GAMMA = 500, 0.7
+HW_OLOP = dict(num_actions=HW_ACTIONS, episodes=72, horizon=6, gamma=HW_OLOP_GAMMA,
+               threshold_coeff=2.0, continuation_uniform=True)
+HW_DROP = dict(num_actions=HW_ACTIONS, expansions=200 // HW_ACTIONS, gamma=0.9)
+HIGHWAY_AGENT_STEPS = 10
+CPU = torch.device("cpu")
 
 
 STARTED = time.time()
@@ -304,15 +341,13 @@ def sailing_case(dev):
     return env, env.default_params(dev), states
 
 
-def gbop_kl_calls(dev) -> list:
+def gbop_kl_calls(dev, env, params, states0, kw: dict, launches: int) -> list:
     """``[((sum, count, threshold), lower), ...]``: the inputs of the dense
-    launches of the last episode of one stochastic GBOP plan of ``TREES``
-    trees on Sailing, as the planner passed them, upper and lower in turn for
-    each depth. Sailing pays -cost / worst in [-1, 0), so the sums are
-    negative."""
+    launches of the last episode of one stochastic GBOP plan from
+    ``states0``, as the planner passed them, upper and lower in turn for each
+    depth. The plan must make ``launches`` calls."""
     from rl_agents_torch.agents.tree_search import graph_based_stochastic as gbop
 
-    env, params, states = sailing_case(dev)
     calls = []
     inner = gbop.kl_upper_bound
 
@@ -323,21 +358,41 @@ def gbop_kl_calls(dev) -> list:
 
     gbop.kl_upper_bound = recording
     try:
-        states0 = states(dev, TREES)
         gbop.gbop_stochastic_plan(env, params, states0, env.observe(params, states0),
-                                  torch.Generator(device=dev).manual_seed(12), device=dev, **GBOP)
+                                  torch.Generator(device=dev).manual_seed(12), device=dev, **kw)
     finally:
         gbop.kl_upper_bound = inner
-    if len(calls) != GBOP_KL_LAUNCHES:
+    if len(calls) != launches:
         raise AssertionError(f"a stochastic GBOP plan made {len(calls)} KL calls, "
-                             f"expected {GBOP_KL_LAUNCHES}")
-    calls = calls[-2 * GBOP["horizon"]:]
+                             f"expected {launches}")
+    return calls[-2 * kw["horizon"]:]
+
+
+def sailing_gbop_kl_calls(dev) -> list:
+    """The dense launches of the last episode of a ``TREES``-tree stochastic
+    GBOP plan on Sailing, which pays -cost / worst in [-1, 0): the sums are
+    negative."""
+    env, params, states = sailing_case(dev)
+    calls = gbop_kl_calls(dev, env, params, states(dev, TREES), GBOP, GBOP_KL_LAUNCHES)
     negative = sum(int((inputs[0] < 0).sum()) for inputs, _ in calls)
     total = sum(inputs[0].numel() for inputs, _ in calls)
     print(f"stochastic GBOP on Sailing, last episode: {negative} of {total} reward sums passed "
           f"to kl_bound are negative")
     if negative == 0:
         raise AssertionError("no negative reward sum reached kl_bound on Sailing")
+    return calls
+
+
+def highway_gbop_kl_calls(dev) -> list:
+    """The dense launches of the last episode of a stochastic GBOP plan on
+    highway at the JAX bench's sizes (512 trees, 8 x 4)."""
+    env, params, states = highway_case(dev)
+    calls = gbop_kl_calls(dev, env, params(dev), states(dev, HW_GBOP_TREES), HW_GBOP,
+                          HW_GBOP_KL_LAUNCHES)
+    counts = torch.cat([inputs[1] for inputs, _ in calls])
+    print(f"stochastic GBOP on highway, last episode: {len(calls)} launches of "
+          f"{calls[0][0][0].numel()} elements, counts up to {float(counts.max())!r}, "
+          f"{int((counts == 0).sum())} of {counts.numel()} never visited")
     return calls
 
 
@@ -362,10 +417,12 @@ def check_kl_bound(dev) -> dict:
     """The dense form against its plain version on the inputs that MDP-GapE
     plans passed to it (every launch of a plan's last episode: 4096 trees and
     1 tree at the config's confidence 1.0, 4096 trees at the agent's default
-    0.9) and that a stochastic GBOP plan on Sailing passed to it (every launch
-    of its last episode: negative sums), at OLOP's former per-depth shape, a large odd size, 2^24 and the
-    edge cases; timed on the first-depth launches of those plans, at n = 4096
-    on OLOP-like statistics and at n = 2^24 (bytes-bound)."""
+    0.9) and that stochastic GBOP plans passed to it (every launch of the last
+    episode: on Sailing, negative sums; on highway at the JAX bench's 512
+    trees), at OLOP's former per-depth shape, a large odd size, 2^24 and the
+    edge cases; timed on the first-depth launches of those plans (and the
+    last depth of the GBOP plans), at n = 4096 on OLOP-like statistics and at
+    n = 2^24 (bytes-bound)."""
     from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_torch
     from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS
 
@@ -373,7 +430,8 @@ def check_kl_bound(dev) -> dict:
     worst = 0.0
     gape = {"config": gape_kl_calls(dev, GAPE, TREES), "config_n1": gape_kl_calls(dev, GAPE, 1),
             "default": gape_kl_calls(dev, GAPE_DEFAULT, TREES)}
-    gbop = gbop_kl_calls(dev)
+    gbop = sailing_gbop_kl_calls(dev)
+    highway = highway_gbop_kl_calls(dev)
     cases = [(f"{n} OLOP-like", kl_inputs(n, rng, dev), (False, True))
              for n in (TREES, 1_000_003, DENSE_LARGE)]
     cases.append(("8 edge cases", kl_edge_inputs(dev), (False, True)))
@@ -381,6 +439,8 @@ def check_kl_bound(dev) -> dict:
               for tag, calls in gape.items() for i, (inputs, lower) in enumerate(calls)]
     cases += [(f"{inputs[0].numel()} stochastic GBOP on Sailing launch {i}", inputs, (lower,))
               for i, (inputs, lower) in enumerate(gbop)]
+    cases += [(f"{inputs[0].numel()} stochastic GBOP on highway launch {i}", inputs, (lower,))
+              for i, (inputs, lower) in enumerate(highway)]
     for label, inputs, sides in cases:
         for lower in sides:
             for iters in (24, NEWTON_MAX_ITERATIONS):
@@ -403,12 +463,13 @@ def check_kl_bound(dev) -> dict:
         for inputs, lower in gape[tag][:2]:
             timed[f"gape_{tag}_{'lower' if lower else 'upper'}"] = time_dense(
                 label, inputs, inputs[0].numel(), lower, reps, dev)
-    # stochastic GBOP: the first and the last depth of the recorded episode
-    for tag, pair in (("first", gbop[:2]), ("last", gbop[-2:])):
-        for inputs, lower in pair:
-            timed[f"gbop_{tag}_{'lower' if lower else 'upper'}"] = time_dense(
-                f"stochastic GBOP on Sailing, {tag} depth", inputs, inputs[0].numel(), lower,
-                reps, dev)
+    # stochastic GBOP: the first and the last depth of the recorded episodes
+    for domain, calls in (("gbop", gbop), ("highway_gbop", highway)):
+        for tag, pair in (("first", calls[:2]), ("last", calls[-2:])):
+            for inputs, lower in pair:
+                timed[f"{domain}_{tag}_{'lower' if lower else 'upper'}"] = time_dense(
+                    f"stochastic GBOP on {'highway' if 'highway' in domain else 'Sailing'}, "
+                    f"{tag} depth", inputs, inputs[0].numel(), lower, reps, dev)
     main = timed.pop("gape_config_upper")
     timed["olop_like"] = time_dense("OLOP-like", kl_inputs(TREES, rng, dev), TREES, False, reps, dev)
     timed[f"n{DENSE_LARGE}"] = time_dense("OLOP-like", kl_inputs(DENSE_LARGE, rng, dev),
@@ -519,7 +580,8 @@ def profile_plan(plan, host_events: bool = True) -> dict:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / 1e3!r} ms in {e.count} x {e.key[:90]}")
     return {"kernels": launches, "kl_ms": sum(e.self_device_time_total for e in kl) / 1e3,
-            "kl_launches": sum(e.count for e in kl)}
+            "kl_launches": sum(e.count for e in kl), "busy_share": busy_us / wall_us,
+            "wall_ms": wall_us / 1e3}
 
 
 def cartpole_case(dev):
@@ -544,17 +606,24 @@ def report_plans(name: str, times: list, work: int, unit: str) -> float:
     return ms
 
 
-def same_on_cpu(name: str, got: dict, want: dict, exact: tuple, close: tuple):
-    """The first ``CPU_SUBSET`` trees of a plan on the card against the same
+def same_on_cpu(name: str, got: dict, want: dict, exact: tuple, close: tuple,
+                subset: int = CPU_SUBSET):
+    """The first ``subset`` trees of a plan on the card against the same
     trees planned on the CPU: ``exact`` fields equal, ``close`` within
-    ``KL_TOLERANCE``."""
+    ``KL_TOLERANCE`` (infinities in the same places)."""
     for field in exact:
-        if not np.array_equal(got[field][:CPU_SUBSET], want[field]):
+        if not np.array_equal(got[field][:subset], want[field]):
             raise AssertionError(f"{name}: {field} differs from the CPU plan")
-    errors = {field: float(np.abs(got[field][:CPU_SUBSET] - want[field]).max()) for field in close}
+    errors = {}
+    for field in close:
+        a, b = got[field][:subset], want[field]
+        if not np.array_equal(np.isinf(a), np.isinf(b)):
+            raise AssertionError(f"{name}: {field} is infinite elsewhere than in the CPU plan")
+        finite = np.isfinite(b)
+        errors[field] = float(np.abs(a[finite] - b[finite]).max()) if finite.any() else 0.0
     if not all(err <= KL_TOLERANCE for err in errors.values()):
         raise AssertionError(f"{name}: differs from the CPU plan by {errors}")
-    print(f"{name}: first {CPU_SUBSET} trees equal to the CPU plan ({', '.join(exact)}); "
+    print(f"{name}: first {subset} trees equal to the CPU plan ({', '.join(exact)}); "
           f"max|diff| {errors}")
 
 
@@ -838,7 +907,7 @@ def check_gbop_batch_path(dev) -> dict:
     finally:
         port_math.NEWTON_BLOCK = block
     print(f"  one plan with a read-back every trip: {ms!r} ms, {newton_line()}")
-    profile_plan(wide, host_events=False)
+    # not profiled: tracing its ~650k kernels took two minutes of the budget
     action, graph = result[0]
     if not ((action >= 0) & (action < A)).all() or not torch.isfinite(graph.value_upper).all() \
             or int(graph.sa_n.max()) < 2:
@@ -933,15 +1002,18 @@ def check_opd_batch_path(dev) -> dict:
 
 
 def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan: int,
-                     kl_bound_indexed_per_plan: int) -> dict:
+                     kl_bound_indexed_per_plan: int, check=None) -> dict:
     """One episode through ``load_environment`` / ``load_agent`` /
     ``Evaluation.test`` on the card; returns the launches of each KL wrapper,
-    which must be the given numbers per planning step."""
+    which must be the given numbers per planning step. ``check(env, agent)``
+    runs before the episode."""
     from rl_agents_torch.factory import load_agent, load_environment
     from rl_agents_torch.trainer.evaluation import Evaluation
 
     env = load_environment(env_config, device=dev)
     agent = load_agent(agent_config, env, device=dev)
+    if check is not None:
+        check(env, agent)
     evaluation = Evaluation(env, agent, directory=REPO / "out" / "chip_smoke", num_episodes=1,
                             training=False, sim_seed=0)
     reset_launches()
@@ -954,10 +1026,11 @@ def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan
     launches = read_launches()
     episodes_file = evaluation.run_directory / Evaluation.EPISODES_FILE
     episode = json.loads(episodes_file.read_text().splitlines()[-1])
-    sizes = (f"{agent.config['episodes']} episodes x horizon {agent.config['horizon']}"
-             if "episodes" in agent.config
-             else f"{agent.config['budget'] // env.action_space.n} expansions")
-    print(f"{name} agent path: budget {agent.config['budget']} ({sizes}), "
+    planner = getattr(agent, "sub_agent", agent)  # IRP plans with its sub-agent
+    sizes = (f"{planner.config['episodes']} episodes x horizon {planner.config['horizon']}"
+             if "episodes" in planner.config
+             else f"{planner.config['budget'] // env.action_space.n} expansions")
+    print(f"{name} agent path: budget {planner.config['budget']} ({sizes}), "
           f"return {episode['total_reward']!r} in {episode['length']} steps, {seconds!r} s "
           f"({seconds / episode['length']!r} s per step), launches {launches}; {newton_line()}; "
           f"{sweep_line(1)}")
@@ -966,6 +1039,263 @@ def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan
     expect_launches(f"{name} agent path", launches, kl_bound_per_plan * episode["length"],
                     kl_bound_indexed_per_plan * episode["length"])
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The highway family: the JAX bench's highway lines and the robust planners
+# ---------------------------------------------------------------------------
+
+def highway_case(dev, config_path=CONFIGS / "HighwayEnv" / "env.json"):
+    """The env of a corpus highway config on ``dev`` and ``TREES`` start
+    states drawn once by the port's ``reset`` from a seeded CPU generator, so
+    that both devices plan from the same states."""
+    from rl_agents_torch.envs import highway
+    from rl_agents_torch.factory import ENV_REGISTRY
+
+    config = json.loads(Path(config_path).read_text())
+    make = getattr(highway, ENV_REGISTRY[config["id"]].split(":")[1])
+    env = make(dict(config), device="cpu").functional
+    start, _ = env.reset(env.default_params("cpu"), torch.Generator().manual_seed(5), TREES)
+
+    base = make(dict(config), device="cpu").params
+
+    def states(device, n):
+        return type(start)(*(x[:n].to(device) for x in start))
+
+    def params(device):
+        return type(base)(*(v.to(device) for v in base))
+
+    return env, params, states
+
+
+def drop_case(dev):
+    """``merge-v0`` (``MergeEnv/env.json``) with the two models of
+    ``MergeEnv/agents/DiscreteRobustPlannerAgent.json``, the Aggressive and the
+    Defensive presets, stacked on a leading model axis; the start states
+    ``[n, M, ...]``."""
+    from rl_agents_torch.agents.robust.robust import stack_params
+    from rl_agents_torch.factory import load_environment, preprocess_env
+
+    agent = json.loads((CONFIGS / "MergeEnv" / "agents" / "DiscreteRobustPlannerAgent.json")
+                       .read_text())
+    env, _, states = highway_case(dev, CONFIGS / "MergeEnv" / "env.json")
+    handle = load_environment(CONFIGS / "MergeEnv" / "env.json", device="cpu")
+    ensemble = stack_params([preprocess_env(handle, [model]).params for model in agent["models"]])
+    M = ensemble[0].shape[0]
+
+    def model_states(device, n):
+        return type(states(CPU, 1))(*(x[:, None].expand((n, M) + x.shape[1:]).contiguous()
+                                      for x in states(device, n)))
+
+    def params(device):
+        return type(ensemble)(*(v.to(device) for v in ensemble))
+
+    return env, params, model_states, M
+
+
+def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, close, work: int,
+                       unit: str, kl_bound: int = 0, kl_bound_indexed: int = 0,
+                       trees: int | None = None, validate=None) -> dict:
+    """One highway batch path: ``run(device, n, noise)`` plans the first
+    ``n`` trees (noise None: drawn from a generator on the device).
+    ``PLANS`` timed plans with the launches of each KL form counted (the given
+    numbers per plan; no warm-up plan: phase 3 and the earlier paths warmed
+    the kernels, and the median takes the rest), then one profiled plan under
+    noise drawn on the CPU, whose first ``CPU_SUBSET`` trees are held against
+    the CPU plan of the same trees."""
+    trees = trees or TREES
+    subset = CPU_SUBSET
+    plan = lambda: run(dev, trees, None)
+    reset_launches()
+    reset_sweeps()
+    times = timed_plans(plan)
+    launches = read_launches()
+    expect_launches(f"{name}, {PLANS} plans", launches, PLANS * kl_bound,
+                    PLANS * kl_bound_indexed)
+    ms = report_plans(f"{name} B={trees}", times, work, unit)
+    print(f"  {launches} launches in {PLANS} plans; {sweep_line(trees)}")
+    noise = make_noise(trees)
+    results = []
+    profiled = profile_plan(lambda: results.append(run(dev, trees, noise)), host_events=False)
+    if profiled["kl_launches"] != kl_bound + kl_bound_indexed:
+        raise AssertionError(f"{name}: the profiler saw {profiled['kl_launches']} KL kernels in "
+                             f"one plan, expected {kl_bound + kl_bound_indexed}")
+    got = fields(results[0])
+    if validate is not None:
+        validate(got)
+    started = time.time()
+    want = fields(run(CPU, subset, cut(noise, subset)))
+    print(f"  CPU plan of {subset} trees: {time.time() - started!r} s")
+    same_on_cpu(name, got, want, exact, close, subset)
+    return {"launches": launches, "ms": ms, "kernels": profiled["kernels"],
+            "busy_share": profiled["busy_share"]}
+
+
+def expect(condition: bool, message: str):
+    if not condition:
+        raise AssertionError(message)
+
+
+def check_highway_batch_paths(dev) -> dict:
+    """The six highway batch paths at the JAX bench's sizes
+    (``bench.py:242-367``), KL-OLOP at ``kl-olop.json``'s and DROP at
+    ``DiscreteRobustPlannerAgent.json``'s, all at the full width of
+    ``HighwayEnv/env.json`` (15 vehicles, 4 lanes, 40 steps). Returns, per
+    path, its launches and measurements."""
+    from rl_agents_torch.agents.tree_search import batch
+    from rl_agents_torch.agents.tree_search.mcts import gumbel
+
+    env, params, states = highway_case(dev)
+    A = HW_ACTIONS
+    probs = torch.ones(A) / A
+    out = {}
+
+    def gen(device, noise):
+        return torch.Generator(device=device).manual_seed(0) if noise is None else None
+
+    def host(seed):
+        return torch.Generator().manual_seed(seed)
+
+    print("-- MCTS")
+    out["highway_mcts"] = highway_batch_path(
+        dev, "mcts_plan_batch on highway",
+        lambda d, n, noise: batch.mcts_plan_batch(env, params(d), states(d, n), gen(d, noise),
+                                                  probs, probs, noise=noise, device=d, **HW_MCTS),
+        lambda n: gumbel((EPISODES, HORIZON, 2, A, n), host(21), "cpu"),
+        lambda noise, n: noise[..., :n], lambda r: plan_fields(*r),
+        ("actions", "lengths", "count", "parent"), ("value",), TREES * EPISODES * HORIZON,
+        "env-steps",
+        validate=lambda g: expect((g["count"][:, 0] == EPISODES).all()
+                                  and np.isfinite(g["value"]).all(), "MCTS on highway: counts"))
+
+    print("-- OPD")
+    P = HW_OPD["plan_capacity"]
+    out["highway_opd"] = highway_batch_path(
+        dev, "opd_plan_batch on highway",
+        lambda d, n, noise: batch.opd_plan_batch(env, params(d), states(d, n), gen(d, noise),
+                                                 noise=noise, device=d, **HW_OPD),
+        lambda n: gumbel((P, A, n), host(22), "cpu"), lambda noise, n: noise[..., :n],
+        lambda r: plan_fields(*r),
+        ("actions", "lengths", "parent", "depth", "children", "done", "leaf", "count"),
+        ("reward", "value_lower", "value_upper"), TREES * HW_OPD["expansions"], "expansions",
+        validate=lambda g: expect((g["count"][:, 0] == 1 + HW_OPD["expansions"] * A).all()
+                                  and (g["value_lower"] <= g["value_upper"]).all(),
+                                  "OPD on highway: counts or bounds"))
+
+    print("-- GBOP-D")
+    R = HW_GBOP_D["expansions"]
+    arena = -((1 + R * A) // -8) * 8
+
+    def gbop_d(d, n, noise):
+        s = states(d, n)
+        return batch.gbop_plan_batch(env, params(d), s, env.observe(params(d), s), gen(d, noise),
+                                     noise=noise, device=d, **HW_GBOP_D)
+
+    out["highway_gbop_d"] = highway_batch_path(
+        dev, "gbop_plan_batch on highway", gbop_d,
+        lambda n: [gumbel((n, arena, A), host(23 + r), "cpu") for r in range(R)],
+        lambda noise, n: [g[:n] for g in noise], lambda r: plan_fields(*r),
+        ("actions", "lengths", "keys", "expanded", "children", "used"),
+        ("rewards", "value_lower", "value_upper"), TREES * R, "expansions",
+        validate=lambda g: expect((g["used"] > 1 + A).all(),
+                                  "GBOP-D on highway: no observation reached a known node"))
+
+    print("-- stochastic GBOP")
+    E, H = HW_GBOP["episodes"], HW_GBOP["horizon"]
+
+    def gbop(d, n, noise):
+        s = states(d, n)
+        action, graph = batch.gbop_stochastic_plan_batch(
+            env, params(d), s, env.observe(params(d), s), gen(d, noise), noise=noise, device=d,
+            **HW_GBOP)
+        return graph_fields(graph, action=action)
+
+    out["highway_gbop_stochastic"] = highway_batch_path(
+        dev, "gbop_stochastic_plan_batch on highway", gbop,
+        lambda n: (gumbel((E, H, n, A), host(40), "cpu"), gumbel((n, A), host(41), "cpu")),
+        lambda noise, n: (noise[0][:, :, :n], noise[1][:n]), lambda r: r,
+        ("action", "visited", "n_count", "c_count", "sa_count", "sa_keys", "sa_child", "sa_n",
+         "used"),
+        ("sa_cum_reward", "sa_mu_ucb", "sa_mu_lcb", "value_lower", "value_upper"),
+        HW_GBOP_TREES * E * H, "sample-steps", kl_bound=HW_GBOP_KL_LAUNCHES,
+        trees=HW_GBOP_TREES,
+        validate=lambda g: expect((g["n_count"].sum(axis=1) == E * H).all()
+                                  and (g["sa_mu_lcb"] <= g["sa_mu_ucb"]).all(),
+                                  "stochastic GBOP on highway: counts or bounds"))
+
+    print("-- KL-OLOP")
+    E, H = HW_OLOP["episodes"], HW_OLOP["horizon"]
+
+    def olop(d, n, noise):
+        return plan_fields(*batch.olop_plan_batch(env, params(d), states(d, n), gen(d, noise),
+                                                  random_actions=noise, device=d, **HW_OLOP))
+
+    out["highway_kl_olop"] = highway_batch_path(
+        dev, "olop_plan_batch on highway (kl-olop.json)", olop,
+        lambda n: torch.randint(0, A, (E, H, n), generator=host(42)),
+        lambda noise, n: noise[..., :n], lambda r: r,
+        ("actions", "lengths", "parent", "children", "depth", "count", "done", "used"),
+        ("mu_ucb", "value_upper"), TREES * E * H, "env-steps", kl_bound_indexed=E,
+        validate=lambda g: expect(
+            (np.take_along_axis(g["count"], g["children"][:, 0], 1).sum(axis=1) == E).all(),
+            "KL-OLOP on highway: the root's children were not visited once per episode"))
+
+    print("-- DROP on merge-v0")
+    denv, dparams, dstates, M = drop_case(dev)
+    P = min(HW_DROP["expansions"], 64)
+
+    def drop(d, n, noise):
+        return plan_fields(*batch.robust_opd_plan_batch(
+            denv, dparams(d), dstates(d, n), gen(d, noise), num_models=M, plan_capacity=P,
+            noise=noise, device=d, **HW_DROP))
+
+    out["highway_drop"] = highway_batch_path(
+        dev, f"robust_opd_plan_batch on merge-v0, {M} models", drop,
+        lambda n: gumbel((P, n, A), host(43), "cpu"), lambda noise, n: noise[:, :n], lambda r: r,
+        ("actions", "lengths", "parent", "action", "depth", "children", "done", "leaf", "used"),
+        ("reward", "value_lower", "value_upper"), TREES * M * HW_DROP["expansions"],
+        "model-expansions",
+        validate=lambda g: expect((g["value_lower"] <= g["value_upper"]).all()
+                                  and (g["lengths"] >= 1).all(), "DROP on merge: bounds"))
+    return out
+
+
+def check_highway_agent_paths(dev) -> dict:
+    """Five agent paths, 10 steps each, through ``load_environment`` /
+    ``load_agent`` / ``Evaluation.test``."""
+    from rl_agents_torch.factory import preprocess_env
+
+    highway = json.loads((CONFIGS / "HighwayEnv" / "env.json").read_text())
+    highway["max_episode_steps"] = HIGHWAY_AGENT_STEPS
+    merge = json.loads((CONFIGS / "MergeEnv" / "env.json").read_text())
+    merge["max_episode_steps"] = HIGHWAY_AGENT_STEPS
+    agents = CONFIGS / "HighwayEnv" / "agents"
+    paths = {}
+    paths["highway_opd_agent"] = check_agent_path(
+        dev, "DeterministicPlannerAgent on highway", highway,
+        agents / "DeterministicPlannerAgent.json", 0, 0)
+    paths["highway_mcts_agent"] = check_agent_path(dev, "MCTSAgent on highway", highway,
+                                                   agents / "MCTSAgent.json", 0, 0)
+
+    def simplified(env, agent):
+        smaller = preprocess_env(env, agent.config["env_preprocessors"])
+        expect(smaller.functional.vehicles == 6 and smaller.state.x.shape == (1, 6),
+               "kl-olop.json's simplify did not keep 6 vehicles")
+        print(f"  kl-olop.json plans on {smaller.functional.vehicles} of "
+              f"{env.functional.vehicles} vehicles, {agent.config['episodes']} episodes x "
+              f"horizon {agent.config['horizon']}: {agent.config['episodes']} "
+              f"kl_bound_indexed_ launches per act()")
+
+    paths["highway_kl_olop_agent"] = check_agent_path(
+        dev, "OLOPAgent (kl-olop.json) on highway", highway, agents / "OLOPAgent" / "kl-olop.json",
+        0, HW_OLOP["episodes"], check=simplified)
+    paths["highway_irp_agent"] = check_agent_path(
+        dev, "IntervalRobustPlannerAgent on highway", highway,
+        agents / "IntervalRobustPlannerAgent" / "baseline.json", 0, 0)
+    paths["merge_drop_agent"] = check_agent_path(
+        dev, "DiscreteRobustPlannerAgent on merge-v0", merge,
+        CONFIGS / "MergeEnv" / "agents" / "DiscreteRobustPlannerAgent.json", 0, 0)
+    return paths
 
 
 def main():
@@ -1034,13 +1364,28 @@ def main():
                                              agents / "gbop-d.json", 0, 0)
     paths["opd_agent"] = check_agent_path(dev, "DeterministicPlannerAgent", sailing,
                                           agents / "opd.json", 0, 0)
+    phase("14. highway batch paths")
+    olop_config = json.loads((CONFIGS / "HighwayEnv" / "agents" / "OLOPAgent" / "kl-olop.json")
+                             .read_text())
+    if (olop_config["budget"], olop_config["gamma"]) != (HW_OLOP_BUDGET, HW_OLOP_GAMMA) \
+            or allocation(HW_OLOP_BUDGET, HW_OLOP_GAMMA) != (HW_OLOP["episodes"],
+                                                              HW_OLOP["horizon"]):
+        raise AssertionError("kl-olop.json no longer splits into 72 episodes x horizon 6")
+    highway = check_highway_batch_paths(dev)
+    for path, result in highway.items():
+        paths[path] = result["launches"]
+    phase("15. highway agent paths")
+    paths.update(check_highway_agent_paths(dev))
+    print(json.dumps({"highway_batch_paths": {
+        path: {key: value for key, value in result.items() if key != "launches"}
+        for path, result in highway.items()}}))
     for kernel in kernels:
         kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         if kernel["launches"] == 0:
             raise AssertionError(f"no path launched {kernel['name']}")
 
-    phase("14. summary")
+    phase("16. summary")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,6 +8,7 @@ place of the per-tree keys.
 """
 from __future__ import annotations
 
+from rl_agents_torch.agents.robust.robust import robust_opd_plan
 from rl_agents_torch.agents.tree_search.deterministic import (  # noqa: F401 (re-export)
     opd_plan_batch,
 )
@@ -49,3 +50,12 @@ def state_aware_plan_batch(env, params, states0, obs0, generator=None, **kw):
     """Batched state-aware OPD (reference: state_aware.py:10-137). Returns
     ``(actions [B, P], lengths [B], StateAwareTree)``."""
     return state_aware_plan(env, params, states0, obs0, generator, **kw)
+
+
+def robust_opd_plan_batch(env, params_ensemble, states0, generator=None, **kw):
+    """Batched DROP (reference: robust.py:9-71): B trees over the M models of
+    ``params_ensemble`` (a leading ``[M]`` axis on every field), from
+    ``states0 [B, M, ...]``. The JAX package has no batch entry for it and
+    vmaps its single-tree ``robust_opd_plan``. Returns ``(actions [B, P],
+    lengths [B], RobustTree)``."""
+    return robust_opd_plan(env, params_ensemble, states0, generator, **kw)

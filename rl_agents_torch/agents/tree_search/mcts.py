@@ -140,7 +140,7 @@ def _mcts_episodes(env, params, tree: MCTSTree, states0, generator, prior_probs,
             scores = value.gather(1, chs) + temperature * n_children * prior.gather(1, chs) / (
                 count.gather(1, chs).to(f32) + 1.0)
             action = _masked_random_argmax(descend_g[step], scores, valid)
-            out = env.step(params, state, action, generator)
+            out = env.transition(params, state, action, generator)
             # total + gamma ** depth * reward is one fused multiply-add in the JAX package
             new_total = fma(discount[depth], out.reward.to(f32), total)
             node = torch.where(active, ch.gather(1, action[:, None]).squeeze(1), node)
@@ -169,7 +169,7 @@ def _mcts_episodes(env, params, tree: MCTSTree, states0, generator, prior_probs,
         roll_state, h, rolled, roll_terminal = state, depth, total, terminal
         for step in range(H):
             action = (rollout_logits + rollout_g[step]).argmax(dim=1)
-            out = env.step(params, roll_state, action, generator)
+            out = env.transition(params, roll_state, action, generator)
             live = (h < H) & ~roll_terminal
             rolled = rolled + torch.where(live, discount[h] * out.reward.to(f32), 0.0)
             roll_state = _where_state(live, out.state, roll_state)

@@ -118,7 +118,7 @@ def mcts_plan_batch_fused(env, params, states0, generator: torch.Generator | Non
 
             # -- env step (masked once terminal)
             live = ~terminal
-            out = env.step(params, state, action, generator)
+            out = env.transition(params, state, action, generator)
             total = total + torch.where(live, discount[h] * out.reward.to(f32), 0.0)
             state = _where_state(live, out.state, state)
             terminal = terminal | (live & out.terminated)

@@ -161,7 +161,7 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
             ucb_action = child_values(value_upper, ch, -torch.inf).argmax(dim=1)
             action = torch.where(is_leaf, random_actions[episode, h], ucb_action)
 
-            out = env.step(params, state, action, generator)
+            out = env.transition(params, state, action, generator)  # the observation is unused
             child = ch.gather(1, action[:, None]).squeeze(1)
             # node reward statistics update (reference: olop.py:132-142)
             child_done = out.terminated | done[rows, child]

@@ -9,9 +9,10 @@ for a tree arena (``OLOPTree``, ``MCTSTree``, ``GapETree``), whose fields are
 single tree its leading batch axis; ``graph_from_numpy`` and
 ``opd_tree_from_numpy`` do it for the arenas that nest an env-state NamedTuple
 and a hash table (``Graph``, ``StochasticGraph``, ``OPDTree``,
-``StateAwareTree``), so that a tree grown by the JAX package can be continued,
-re-rooted or backed up here; ``tree_to_numpy`` goes the other way for
-comparisons.
+``StateAwareTree``; ``robust_tree_from_numpy`` for ``RobustTree``), so that a
+tree grown by the JAX package can be continued, re-rooted or backed up here;
+``highway_state_from_numpy`` takes a highway env state; ``tree_to_numpy`` goes
+the other way for comparisons.
 Tests and ``chip_smoke.py`` use this module; the planning path does not.
 """
 from __future__ import annotations
@@ -95,3 +96,21 @@ def tree_to_numpy(tree):
         return array
 
     return type(tree)(*(convert(name, t) for name, t in zip(tree._fields, tree)))
+
+
+def highway_state_from_numpy(arrays, device="cuda", batched: bool = True):
+    """A ``HighwayState`` of the JAX package (``[V]`` fields for one
+    simulation, ``[B, V]`` under ``vmap``) as this package's batch-first
+    state; ``batched=False`` adds the batch axis of one."""
+    from rl_agents_torch.envs.highway import HighwayState
+
+    return tree_from_numpy(HighwayState, arrays, device=device, batched=batched)
+
+
+def robust_tree_from_numpy(arrays, state_cls, device="cuda", batched: bool = True):
+    """A ``RobustTree`` of the JAX package (node fields ``[N]`` and ``[N, M]``,
+    env states ``[N, M, ...]``; one more leading axis under ``vmap``) as this
+    package's arena, with the port's ``state_cls`` for its env states."""
+    from rl_agents_torch.agents.robust.robust import RobustTree
+
+    return graph_from_numpy(RobustTree, arrays, state_cls, device=device, batched=batched)

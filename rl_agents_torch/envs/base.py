@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from rl_agents_torch.utils.device import resolve_device
@@ -38,6 +39,16 @@ class Box:
     low: Any
     high: Any
     shape: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class TupleSpace:
+    """One space per controlled agent (multi-agent actions and observations)."""
+    spaces: Tuple[Any, ...]
+
+    @property
+    def shape(self):
+        return (len(self.spaces),)
 
 
 class StepOut(NamedTuple):
@@ -127,6 +138,7 @@ class EnvHandle:
                                 else env.default_params(self.device), self.device)
         self.config = dict(config or {})
         self.state = None
+        self.obs = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0)
         # the reference's load_environment resets envs on creation
@@ -141,6 +153,10 @@ class EnvHandle:
     def action_space(self):
         return self.functional.action_space
 
+    @property
+    def observation_space(self):
+        return self.functional.observation_space
+
     def seed(self, seed: int | None = None):
         if seed is not None:
             self.generator.manual_seed(seed)
@@ -149,15 +165,28 @@ class EnvHandle:
     def reset(self, seed: int | None = None, **kwargs):
         if seed is not None:
             self.seed(seed)
-        self.state, obs = self.functional.reset(self.params, self.generator, 1)
-        return obs[0].cpu().numpy(), {}
+        self.state, self.obs = self.functional.reset(self.params, self.generator, 1)
+        return _first(self.obs), {}
 
     def step(self, action):
-        action = torch.as_tensor(action, dtype=torch.int64, device=self.device).reshape(1)
+        space = self.functional.action_space
+        dtype = torch.float32 if isinstance(space, Box) else torch.int64
+        action = torch.as_tensor(np.asarray(action), dtype=dtype, device=self.device)
+        action = action.reshape((1,) + tuple(space.shape))
         out = self.functional.step(self.params, self.state, action, self.generator)
-        self.state = out.state
-        return (out.obs[0].cpu().numpy(), float(out.reward[0]), bool(out.terminated[0]),
-                bool(out.truncated[0]), {})
+        self.state, self.obs = out.state, out.obs
+        info = {k: v[0].cpu().numpy() for k, v in out.info.items()
+                if isinstance(v, torch.Tensor) and v.dim() > 0}
+        return (_first(out.obs), float(out.reward[0]), bool(out.terminated[0]),
+                bool(out.truncated[0]), info)
+
+    def to_finite_mdp(self):
+        """Finite-MDP view around the current state, for envs whose functional
+        core supports the conversion (value_iteration.py:29-35)."""
+        fn = getattr(self.functional, "to_finite_mdp", None)
+        if fn is None:
+            raise TypeError(f"{type(self.functional).__name__} has no finite-MDP view")
+        return fn(self.params, self.state)
 
     def close(self):
         pass
@@ -170,9 +199,31 @@ class EnvHandle:
         return new
 
     def preprocess(self, name, args):
+        """A fork of this handle through the functional env's preprocessor
+        ``name``. The preprocessor returns a new functional env, or a pair
+        ``(functional, transform)`` whose ``transform(params, state)`` maps this
+        handle's params and state into the new env's, which then re-observes
+        the state. A preprocessor the env does not know (ValueError) leaves
+        the fork as it is."""
         new = self.fork()
         try:
-            new.functional = self.functional.preprocess(name, args)
+            result = self.functional.preprocess(name, args)
         except ValueError:
-            pass
+            return new
+        if isinstance(result, tuple):
+            new.functional, transform = result
+            if self.state is not None:
+                new.params, new.state = transform(self.params, self.state)
+            if new.state is not None:
+                new.obs = new.functional.observe(new.params, new.state)
+        else:
+            new.functional = result
         return new
+
+
+def _first(obs):
+    """The first row of a batch observation (a tensor, or a tuple of them
+    with several controlled agents) as numpy."""
+    if isinstance(obs, tuple):
+        return tuple(o[0].cpu().numpy() for o in obs)
+    return obs[0].cpu().numpy()

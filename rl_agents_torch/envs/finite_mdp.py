@@ -24,7 +24,7 @@ import torch
 
 from rl_agents_torch.envs.base import Discrete, EnvHandle, EnvSpec, FunctionalEnv, StepOut
 from rl_agents_torch.utils.device import resolve_device
-from rl_agents_torch.utils.noise import gumbel, noise_tensor
+from rl_agents_torch.utils.noise import NULL_KEY, gumbel, noise_tensor, threefry_gumbel
 
 
 class MDPParams(NamedTuple):
@@ -85,38 +85,57 @@ class FiniteMDPEnv(FunctionalEnv):
         return state.s
 
     def next_state(self, params: MDPParams, s, action, generator, noise=None):
+        """Next states ``[B]``. A wider injected draw than the number of
+        outcomes is cut to its first columns (the JAX package's draws for
+        fewer outcomes are such a prefix)."""
+        rows = _rows(params, s)
         if self.mode == "deterministic":
-            return params.transition[s, action]
-        probs = params.transition[s, action]
-        if probs.shape[-1] == 1:  # one outcome: nothing to draw
+            return params.transition[rows + (s, action)]
+        probs = params.transition[rows + (s, action)]
+        K = probs.shape[-1]
+        if K == 1:  # one outcome: nothing to draw
             k = torch.zeros_like(s)
         else:
             noise = gumbel(probs.shape, generator, probs.device) if noise is None \
                 else noise_tensor(noise, probs.device)
-            k = (torch.log(torch.clamp(probs, min=1e-30)) + noise).argmax(dim=-1)
+            if noise.shape[-1] < K:
+                raise ValueError(f"noise for {noise.shape[-1]} outcomes, the MDP has {K}")
+            k = (torch.log(torch.clamp(probs, min=1e-30)) + noise[..., :K]).argmax(dim=-1)
         if self.mode == "stochastic":
             return k
-        return params.next[s, action, k]
+        return params.next[rows + (s, action, k)]
 
     def null_noise(self, batch: int, device):
-        """Zero Gumbel noise in the stochastic modes: the deterministic
-        planners see the most likely next state (the JAX package's null key
-        fixes one draw per number of outcomes instead)."""
+        """The Gumbel draw of the JAX package's all-zero key in the stochastic
+        modes, for as many outcomes as there are states (``next_state`` cuts
+        it to the MDP's outcomes): its deterministic planners step the env
+        with that key, so ``jax.random.categorical`` takes one fixed draw per
+        number of outcomes. Equal to JAX's within float32 rounding of its
+        ``log``."""
         if self.mode == "deterministic":
             return None
-        outcomes = self.num_states if self.mode == "stochastic" else 1
-        return torch.zeros((batch, outcomes), dtype=torch.float32, device=device)
+        draw = torch.tensor(threefry_gumbel(NULL_KEY, self.num_states), device=device)
+        return draw.expand(batch, -1)
 
     def step(self, params: MDPParams, state: MDPState, action, generator=None,
              noise=None) -> StepOut:
-        reward = torch.where(state.done, 0.0, params.reward[state.s, action])
+        rows = _rows(params, state.s)
+        reward = torch.where(state.done, 0.0, params.reward[rows + (state.s, action)])
         s_next = torch.where(state.done, state.s,
                              self.next_state(params, state.s, action, generator, noise))
         t = state.t + 1
-        terminated = params.terminal[s_next] | state.done
+        terminated = params.terminal[rows + (s_next,)] | state.done
         truncated = t >= self.max_episode_steps
         new_state = MDPState(s=s_next, t=t, done=terminated)
         return StepOut(new_state, s_next, reward, terminated, truncated, {})
+
+
+def _rows(params: MDPParams, s):
+    """``(rows,)`` when the params carry one MDP per row (a leading batch axis
+    on every table, as a robust planner's model ensemble has), else ``()``."""
+    if params.reward.dim() == 3:
+        return (torch.arange(s.shape[0], device=s.device),)
+    return ()
 
 
 def params_from_config(config: dict, device="cuda") -> tuple[FiniteMDPEnv, MDPParams]:

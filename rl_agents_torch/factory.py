@@ -23,7 +23,9 @@ logger = logging.getLogger(__name__)
 AGENT_REGISTRY: Dict[str, str] = {
     "DeterministicPlannerAgent":
         "rl_agents_torch.agents.tree_search.deterministic:DeterministicPlannerAgent",
+    "DiscreteRobustPlannerAgent": "rl_agents_torch.agents.robust.robust:DiscreteRobustPlannerAgent",
     "GraphBasedPlannerAgent": "rl_agents_torch.agents.tree_search.graph_based:GraphBasedPlannerAgent",
+    "IntervalRobustPlannerAgent": "rl_agents_torch.agents.robust.robust:IntervalRobustPlannerAgent",
     "MCTSAgent": "rl_agents_torch.agents.tree_search.mcts:MCTSAgent",
     "MDPGapEAgent": "rl_agents_torch.agents.tree_search.mdp_gape:MDPGapEAgent",
     "OLOPAgent": "rl_agents_torch.agents.tree_search.olop:OLOPAgent",
@@ -36,6 +38,18 @@ ENV_REGISTRY: Dict[str, str] = {
     "cartpole": "rl_agents_torch.envs.cartpole:make",
     "finite-mdp": "rl_agents_torch.envs.finite_mdp:make",
     "finite-mdp-v0": "rl_agents_torch.envs.finite_mdp:make",
+    "highway": "rl_agents_torch.envs.highway:make",
+    "intersection": "rl_agents_torch.envs.highway:make_intersection",
+    # reference corpus ids, mapped onto the functional surrogates
+    "highway-v0": "rl_agents_torch.envs.highway:make",
+    "exit-v0": "rl_agents_torch.envs.highway:make",
+    "merge-v0": "rl_agents_torch.envs.highway:make",
+    "intersection-v0": "rl_agents_torch.envs.highway:make_intersection",
+    "intersection-multi-agent-v0": "rl_agents_torch.envs.highway:make_intersection",
+    # roundabout keeps highway-env's 5 meta-actions: a 2-lane ring
+    # approximated by the lane-change surrogate
+    "roundabout-v0": "rl_agents_torch.envs.highway:make_roundabout",
+    "two-way-v0": "rl_agents_torch.envs.highway:make_twoway",
     "sailing-v0": "rl_agents_torch.envs.sailing:make",
     "sailing-5-v0": "rl_agents_torch.envs.sailing:make",
     "sailing-10-v0": "rl_agents_torch.envs.sailing:make",

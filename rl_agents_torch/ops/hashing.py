@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from rl_agents_torch.utils.device import resolve_device
@@ -39,7 +40,10 @@ def obs_key(obs, precision: float = 1e-4) -> torch.Tensor:
     to even, cast to int32 (saturating) and reinterpreted as unsigned."""
     leaves = obs if isinstance(obs, (tuple, list)) else (obs,)
     flat = torch.cat([x.reshape(x.shape[0], -1).to(torch.float32) for x in leaves], dim=1)
-    q = torch.round(flat / precision).to(torch.float64)
+    # ``flat / precision`` in the JAX package: XLA multiplies by the float32
+    # reciprocal of the constant (so does PyTorch's CUDA division by a scalar)
+    scale = float(np.float32(1) / np.float32(precision))
+    q = torch.round(flat * scale).to(torch.float64)
     q = torch.nan_to_num(q, nan=0.0).clamp(-2.0**31, 2.0**31 - 1).to(torch.int64) & _MASK32
     n = q.shape[1]
     # fixed odd position multipliers (Weyl sequence): sum_i q_i * c_i mod 2^32

@@ -68,8 +68,15 @@ def fma(a, b, c) -> torch.Tensor:
     multiply-add: XLA compiles the JAX package's ``c + a * b`` to one on the
     CPU, and the planners compare such sums for exact ties, so one rounding
     step decides which branch a descent takes. The float64 product of two
-    float32 values is exact."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    float32 values is exact. One ``addcmul`` in float64 (the other operands
+    are promoted inside it) and one cast: two kernels on the card."""
+    return torch.addcmul(c, a.double(), b).to(torch.float32)
+
+
+def fnma(a, b, c) -> torch.Tensor:
+    """``c - a * b`` on float32 tensors, rounded once: ``fma(-a, b, c)``
+    without the negation's kernel."""
+    return torch.addcmul(c, a.double(), b, value=-1).to(torch.float32)
 
 
 def near_split(x: int, num_bins: int | None = None, size_bins: int | None = None) -> List[int]:

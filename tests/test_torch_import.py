@@ -158,13 +158,17 @@ def test_agents_not_yet_ported_name_what_is_missing():
     env = load_environment({"id": "cartpole"}, device="cpu")
     with pytest.raises(NotImplementedError, match="mcts_closed_loop"):
         load_agent({"__class__": "MCTSAgent", "closed_loop": True}, env, device="cpu")
-    for name in ("DiscreteRobustPlannerAgent", "IntervalRobustPlannerAgent", "BRUEAgent",
-                 "ValueIterationAgent", "DQNAgent"):
+    for name in ("BRUEAgent", "ValueIterationAgent", "DQNAgent", "RobustEPCAgent"):
         with pytest.raises(NotImplementedError, match=name):
             load_agent({"__class__": name}, env, device="cpu")
-    for env_id in ("highway-v0", "gridenv-v0", "sailing-8-v0"):
+    for env_id in ("gridenv-v0", "sailing-8-v0", "parking-v0"):
         with pytest.raises(NotImplementedError, match=env_id):
             load_environment({"id": env_id}, device="cpu")
+    # ported since: the robust planners and the highway family
+    for name in ("DiscreteRobustPlannerAgent", "IntervalRobustPlannerAgent"):
+        assert load_agent({"__class__": name, "budget": 6}, env, device="cpu").act(
+            env.reset(seed=0)[0]) in (0, 1)
+    assert load_environment({"id": "highway-v0"}, device="cpu").functional.vehicles == 15
     from rl_agents_torch.agents.tree_search.deterministic import opd_plan_parity
 
     with pytest.raises(NotImplementedError, match="opd_plan_parity"):
