@@ -36,7 +36,8 @@ non-zero without its final line:
    agent's default confidence 0.9, two dense ``kl_bound`` launches per
    (episode, depth) step, the Newton trips of its chance backups counted,
    and the first 64 trees of a plan on a deterministic garnet checked against
-   the CPU plan under the same noise;
+   the CPU plan under the same noise (3 timed plans and one with a read-back
+   every Newton trip at confidence 1.0, one timed plan at 0.9);
 9. the MDP-GapE agent path: ``mdp-gape.json`` on ``env_garnet.json`` for one
    episode, cut to 5 steps;
 10. the stochastic GBOP batch path: ``gbop_stochastic_plan_batch`` on the
@@ -45,7 +46,7 @@ non-zero without its final line:
     horizon 55, one next-state slot), two dense ``kl_bound`` launches per
     (episode, depth) step, 330 a plan, its value-iteration sweeps counted and
     its first 64 trees checked against the CPU plan under the same noise; then
-    the same planner with three next-state slots on 512 trees, the Newton
+    the same planner with three next-state slots on 512 trees, one plan, the Newton
     trips of its constrained expectations counted;
 11. the GBOP-D batch path: ``gbop_plan_batch`` on Sailing, 4096 trees, 25
     expansions (``gbop-d.json``), its Bellman sweeps counted; no kernel;
@@ -61,12 +62,33 @@ non-zero without its final line:
     trees, 72 x 6, one ``kl_bound_indexed_`` launch per episode) and DROP on
     ``merge-v0`` (4096 trees x 2 models, 40 expansions); each timed, profiled
     and its first 64 trees held against the CPU plan under the same noise;
-15. the highway agent paths, 10 steps each: ``DeterministicPlannerAgent.json``,
+15. the highway agent paths, 5 steps each: ``DeterministicPlannerAgent.json``,
     ``MCTSAgent.json``, ``OLOPAgent/kl-olop.json`` and
     ``IntervalRobustPlannerAgent/baseline.json`` on ``HighwayEnv/env.json``,
     and ``DiscreteRobustPlannerAgent.json`` on ``MergeEnv/env.json``;
-16. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
-    last line.
+16. the model zoo: the EgoAttentionNetwork at ``__graft_entry__.entry()``'s
+    widths on the card against the same weights on the CPU (within 1e-5,
+    its attention matrix too), at batch 8 and at the JAX bench's serving
+    batch of 16,384 x 15 x 7, forwards timed by CUDA events in float32 and
+    bfloat16; the TF32 flags printed;
+17. the DQN agent path: ``HighwayEnv/agents/DQNAgent/ego_attention.json`` on
+    the uncut ``HighwayEnv/env.json`` through ``load_environment``,
+    ``load_agent`` and ``Evaluation(training=True).train()`` (8 episodes,
+    one SGD step per ``record`` once the memory holds a batch, checkpoints
+    written), one train step's gradients on the card against the CPU's
+    (within 1e-5 of each leaf's largest entry), and a greedy ``test()``
+    episode of at most 10 steps of an agent recovered from ``latest.tar``;
+18. the fused actor-learner: the CUDA-graph step against the eager step
+    from one seed; (a) DQN on CartPole at ``tests/test_dqn_curve_parity.py``'s
+    settings (26,000 steps, 8 envs, one step in a CUDA graph), whose greedy
+    mean over 64 episodes must reach the reference band's lower edge, 169.0;
+    (b) the EgoAttentionNetwork learner at ``bench_dqn_ego_attention``'s
+    sizes (highway 15 vehicles, 4 lanes; 64 envs, batch 64, capacity
+    10,240), env-steps/s and a profiled short segment;
+19. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
+    last line. The DQN paths launch no hand kernel: their products and
+    softmax are ``torch.matmul`` / ``softmax``, as the JAX package computes
+    them outside any Pallas kernel.
 
 Every path is driven with every kernel launch counter set to 0 just before
 and read just after.
@@ -113,8 +135,9 @@ MCTS_TEMPERATURE = 40.0
 GAPE = dict(num_actions=4, episodes=20, horizon=5, gamma=0.7, accuracy=0.0, confidence=1.0,
             transition_threshold_coeff=0.1, width=2)
 GAPE_DEFAULT = dict(GAPE, confidence=0.9)
-GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE),
-              ("agent default, confidence 0.9", GAPE_DEFAULT))
+# (label, sizes, timed plans, a plan with a read-back every trip)
+GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE, PLANS, True),
+              ("agent default, confidence 0.9", GAPE_DEFAULT, 1, False))
 GAPE_STATES = 16
 # the planner runs while ``episode <= episodes``: episodes + 1 episodes of
 # horizon steps, an upper and a lower bound each
@@ -158,8 +181,30 @@ HW_OLOP_BUDGET, HW_OLOP_GAMMA = 500, 0.7
 HW_OLOP = dict(num_actions=HW_ACTIONS, episodes=72, horizon=6, gamma=HW_OLOP_GAMMA,
                threshold_coeff=2.0, continuation_uniform=True)
 HW_DROP = dict(num_actions=HW_ACTIONS, expansions=200 // HW_ACTIONS, gamma=0.9)
-HIGHWAY_AGENT_STEPS = 10
+HIGHWAY_AGENT_STEPS = 5
 CPU = torch.device("cpu")
+
+# the DQN learner: the flagship model at __graft_entry__.entry()'s widths and
+# at the JAX bench's serving batch (bench.py:673-690, float32 here)
+EGO_MODEL = dict(out=5, embedding_layers=(64, 64), others_embedding_layers=(64, 64),
+                 output_layers=(64,), feature_size=64, heads=4)
+ENTRY_BATCH, SERVING_BATCH = 8, 16384
+MODEL_TOLERANCE = 1e-5
+DQN_AGENT = CONFIGS / "HighwayEnv" / "agents" / "DQNAgent" / "ego_attention.json"
+# two episodes of the uncut env end in crashes after about 23 steps, below
+# the config's batch of 32: eight give the learner some tens of SGD steps
+DQN_EPISODES = 8
+DQN_TEST_STEPS = 10
+# tests/test_dqn_curve_parity.py's exact settings, and its bar: the greedy
+# mean over 64 episodes at least the reference band's mean less 2 sigma
+CURVE = dict(total_steps=26_000, segment=1000, seed=0, num_envs=8, capacity=20_000,
+             batch_size=100, gamma=0.99, eps_tau=6000.0, target_update=50)
+CURVE_LAYERS = (100, 100)
+CURVE_EPISODES = 64
+GRAPH_CHECK_STEPS = 100
+# bench.py:436-455: highway at 15 vehicles, 4 lanes, 40 steps; 64 envs
+EGO_FUSED = dict(num_envs=64, batch_size=64, capacity=10_240)
+EGO_FUSED_WARM, EGO_FUSED_STEPS, EGO_FUSED_PROFILED = 50, 300, 10
 
 
 STARTED = time.time()
@@ -735,7 +780,7 @@ def check_gape_batch_path(dev) -> dict:
     fields = lambda best, used, tree: dict(tree_to_numpy(tree)._asdict(), best=best.cpu().numpy(),
                                            episodes_used=used.cpu().numpy())
     config_launches = None
-    for label, kw in GAPE_CASES:
+    for label, kw, plans, read_back in GAPE_CASES:
         print(f"-- {label}")
         env, params, states = garnet_case(dev, branching=2)
         states0 = states(dev, TREES)
@@ -744,25 +789,25 @@ def check_gape_batch_path(dev) -> dict:
         # no warm-up plan: phase 3 ran this planner at these shapes already
         reset_launches()
         reset_newton()
-        times = timed_plans(plan)
+        times = timed_plans(plan, plans)
         launches = read_launches()
-        expect_launches(f"MDP-GapE batch path, {PLANS} plans", launches,
-                        PLANS * GAPE_KL_LAUNCHES, 0)
+        expect_launches(f"MDP-GapE batch path, {plans} plans", launches,
+                        plans * GAPE_KL_LAUNCHES, 0)
         config_launches = config_launches or launches
         report_plans(f"mdp_gape_plan_batch B={TREES} episodes={kw['episodes']} (+1) "
                      f"horizon={kw['horizon']} width={kw['width']} confidence={kw['confidence']}",
                      times, steps, "env-steps")
-        print(f"  {launches['kl_bound'] // PLANS} kl_bound launches per plan; {PLANS} plans: "
+        print(f"  {launches['kl_bound'] // plans} kl_bound launches per plan; {plans} plans: "
               f"{newton_line()}, "
               f"in blocks of {port_math.NEWTON_BLOCK}")
-        # the trips the data needs: the same plan with a read-back every trip
-        block, port_math.NEWTON_BLOCK = port_math.NEWTON_BLOCK, 1
-        try:
-            reset_newton()
-            ms = timed_plans(plan, 1)[0]
-        finally:
-            port_math.NEWTON_BLOCK = block
-        print(f"  one plan with a read-back every trip: {ms!r} ms, {newton_line()}")
+        if read_back:  # the trips the data needs: the same plan, a read-back every trip
+            block, port_math.NEWTON_BLOCK = port_math.NEWTON_BLOCK, 1
+            try:
+                reset_newton()
+                ms = timed_plans(plan, 1)[0]
+            finally:
+                port_math.NEWTON_BLOCK = block
+            print(f"  one plan with a read-back every trip: {ms!r} ms, {newton_line()}")
         results = []
         profiled = profile_plan(lambda: results.append(plan()), host_events=False)
         if profiled["kl_launches"] != GAPE_KL_LAUNCHES:
@@ -832,8 +877,8 @@ def check_gbop_batch_path(dev) -> dict:
     timed, its KL launches counted and their device time read from the
     profiler, its value-iteration sweeps counted, its first 64 trees held
     against the CPU plan under the same noise; then the planner with three
-    next-state slots on 512 trees, with the Newton trips of its constrained
-    expectations as run (in blocks) and as needed (read back every trip).
+    next-state slots on 512 trees, one plan, with the Newton trips of its
+    constrained expectations as run (in blocks).
     Returns the launches of the config's timed plans."""
     from rl_agents_torch.agents.tree_search.batch import gbop_stochastic_plan_batch
     from rl_agents_torch.utils import math as port_math
@@ -900,14 +945,8 @@ def check_gbop_batch_path(dev) -> dict:
     print(f"gbop_stochastic_plan_batch B={GBOP_WIDE_TREES} width=3: {ms!r} ms per plan, "
           f"{GBOP_WIDE_TREES * E * H / (ms / 1e3)!r} sample-steps/s; {newton_line()}, in blocks "
           f"of {port_math.NEWTON_BLOCK}; {sweep_line(GBOP_WIDE_TREES)}")
-    block, port_math.NEWTON_BLOCK = port_math.NEWTON_BLOCK, 1
-    try:
-        reset_newton()
-        ms = timed_plans(wide, 1)[0]
-    finally:
-        port_math.NEWTON_BLOCK = block
-    print(f"  one plan with a read-back every trip: {ms!r} ms, {newton_line()}")
-    # not profiled: tracing its ~650k kernels took two minutes of the budget
+    # not profiled (tracing its ~650k kernels took two minutes of the budget)
+    # and run once: the trips it needs were measured before (PERF.md section 5)
     action, graph = result[0]
     if not ((action >= 0) & (action < A)).all() or not torch.isfinite(graph.value_upper).all() \
             or int(graph.sa_n.max()) < 2:
@@ -1261,7 +1300,7 @@ def check_highway_batch_paths(dev) -> dict:
 
 
 def check_highway_agent_paths(dev) -> dict:
-    """Five agent paths, 10 steps each, through ``load_environment`` /
+    """Five agent paths, 5 steps each, through ``load_environment`` /
     ``load_agent`` / ``Evaluation.test``."""
     from rl_agents_torch.factory import preprocess_env
 
@@ -1296,6 +1335,282 @@ def check_highway_agent_paths(dev) -> dict:
         dev, "DiscreteRobustPlannerAgent on merge-v0", merge,
         CONFIGS / "MergeEnv" / "agents" / "DiscreteRobustPlannerAgent.json", 0, 0)
     return paths
+
+
+# ---------------------------------------------------------------------------
+# The DQN learner: the model zoo, the agent through the harness, the fused
+# actor-learner
+# ---------------------------------------------------------------------------
+
+def tf32_line() -> str:
+    return (f"TF32: torch.backends.cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32="
+            f"{torch.backends.cudnn.allow_tf32} (the zoo's convolutions run with it off)")
+
+
+def entity_batch(batch: int, seed: int) -> torch.Tensor:
+    """Kinematics-like observations on the CPU: column 0 is presence, about
+    30% of the others absent, the ego present."""
+    generator = torch.Generator().manual_seed(seed)
+    x = torch.randn((batch, 15, 7), generator=generator)
+    x[:, :, 0] = (torch.rand((batch, 15), generator=generator) > 0.3).float()
+    x[:, 0, 0] = 1.0
+    return x
+
+
+def check_models(dev) -> dict:
+    """The EgoAttentionNetwork at entry()'s widths on the card against the
+    same weights on the CPU, at batch 8 and at the serving batch, with its
+    attention matrix; forwards per second by CUDA events, float32 and
+    bfloat16."""
+    import copy
+
+    from rl_agents_torch.models.zoo import EgoAttentionNetwork, init_parameters
+
+    print(tf32_line())
+    cpu_model = init_parameters(EgoAttentionNetwork(7, **EGO_MODEL),
+                                torch.Generator().manual_seed(0))
+    model = copy.deepcopy(cpu_model).to(dev)
+    bf16 = EgoAttentionNetwork(7, dtype=torch.bfloat16, **EGO_MODEL).to(dev)
+    bf16.load_state_dict(model.state_dict())
+    rates = {}
+    for batch in (ENTRY_BATCH, SERVING_BATCH):
+        x = entity_batch(batch, seed=batch)
+        xd = x.to(dev)
+        with torch.no_grad():
+            want, got = cpu_model(x), model(xd).cpu()
+            att_err = float((cpu_model.get_attention_matrix(x)
+                             - model.get_attention_matrix(xd).cpu()).abs().max())
+            err = float((got - want).abs().max())
+            bf16_err = float((bf16(xd).float().cpu() - want).abs().max())
+            expect(got.shape == (batch, 5) and bool(torch.isfinite(got).all()),
+                   "EgoAttentionNetwork on the card: bad output")
+            expect(err <= MODEL_TOLERANCE and att_err <= MODEL_TOLERANCE,
+                   f"EgoAttentionNetwork at batch {batch}: card against CPU {err!r}, "
+                   f"attention {att_err!r}, above {MODEL_TOLERANCE}")
+            expect(bf16_err <= 2e-2 * float(want.abs().max()),
+                   f"bfloat16 EgoAttentionNetwork at batch {batch}: {bf16_err!r} from float32")
+            reps = 200 if batch == ENTRY_BATCH else 50
+            ms = cuda_ms(lambda: model(xd), reps)
+            bf16_ms = cuda_ms(lambda: bf16(xd), reps)
+        rates[batch] = batch / (ms / 1e3)
+        print(f"EgoAttentionNetwork batch {batch} x 15 x 7: max |card - CPU| {err!r} "
+              f"(attention {att_err!r}); float32 {ms!r} ms a forward, {rates[batch]!r} "
+              f"samples/s; bfloat16 {bf16_ms!r} ms, {batch / (bf16_ms / 1e3)!r} samples/s, "
+              f"max |bf16 - f32| {bf16_err!r}")
+    return {"launches": read_launches(), "serving_samples_per_s": rates[SERVING_BATCH]}
+
+
+def check_dqn_object_path(dev) -> dict:
+    """``ego_attention.json`` on ``HighwayEnv/env.json`` (15 vehicles, 4
+    lanes): ``load_environment``, ``load_agent`` and
+    ``Evaluation(training=True).train()`` for two episodes on the card, one
+    SGD step per ``record`` once the memory holds a batch; then one train
+    step's gradients on the card against the CPU on the same batch and
+    weights, the timing of a train step, and a greedy ``test()`` episode of
+    10 steps of an agent recovered from ``saved_models/latest.tar``."""
+    from rl_agents_torch.agents.dqn.agent import loss_and_gradients
+    from rl_agents_torch.agents.dqn.replay import Batch
+    from rl_agents_torch.factory import load_agent, load_environment
+    from rl_agents_torch.trainer.evaluation import Evaluation
+
+    directory = REPO / "out" / "chip_smoke" / "dqn"
+    env = load_environment(CONFIGS / "HighwayEnv" / "env.json", device=dev)
+    agent = load_agent(DQN_AGENT, env, device=dev)
+    expect(env.functional.vehicles == 15 and type(agent.model).__name__ == "EgoAttentionNetwork",
+           "the DQN object path is not the uncut highway EgoAttention agent")
+    evaluation = Evaluation(env, agent, directory=directory, num_episodes=DQN_EPISODES,
+                            training=True, sim_seed=0)
+    reset_launches()
+    started = time.time()
+    evaluation.train()
+    torch.cuda.synchronize()
+    seconds = time.time() - started
+    launches = read_launches()
+    episodes = [json.loads(line) for line in
+                (evaluation.run_directory / Evaluation.EPISODES_FILE).read_text().splitlines()]
+    env_steps = sum(e["length"] for e in episodes)
+    expected = env_steps - agent.config["batch_size"] + 1
+    expect(agent.steps == expected > 0, f"DQN object path: {agent.steps} SGD steps, expected "
+                                        f"{expected} for {env_steps} recorded transitions")
+    for name in ("checkpoint-0.tar", "checkpoint-1.tar", "checkpoint-final.tar"):
+        expect((evaluation.run_directory / name).is_file(), f"DQN object path: no {name}")
+    print(f"DQNAgent (ego_attention.json) on highway, {DQN_EPISODES} training episodes: "
+          f"{env_steps} env steps, {agent.steps} SGD steps, returns "
+          f"{[e['total_reward'] for e in episodes]}, {seconds!r} s "
+          f"({seconds / env_steps * 1e3!r} ms per env step with its SGD step), launches "
+          f"{launches}")
+    train_ms = seconds / env_steps * 1e3
+
+    batch = agent.memory.sample(agent.config["batch_size"])
+    state = agent.train_state
+    grads = []
+    for device in (dev, CPU):  # the model is evaluated on the parameters it is given
+        params = {k: v.to(device) for k, v in state.params.items()}
+        target = {k: v.to(device) for k, v in state.target_params.items()}
+        grads.append(loss_and_gradients(
+            agent.model, agent.loss_function, params, target,
+            Batch(*(x.to(device) for x in batch)), agent.config["gamma"], agent.config["double"]))
+    (loss_d, grads_d), (loss_c, grads_c) = grads
+    worst = max(float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
+                for g, c in zip(grads_d, grads_c))
+    expect(worst <= MODEL_TOLERANCE, f"DQN gradients: card against CPU {worst!r} of the leaf's "
+                                     f"largest entry, above {MODEL_TOLERANCE}")
+    sgd_ms = cuda_ms(lambda: agent.train_step(state, batch), 50)
+    print(f"  one train step on the card against the CPU: loss {float(loss_d)!r} / "
+          f"{float(loss_c)!r}, gradients within {worst!r} of each leaf's largest entry; "
+          f"{sgd_ms!r} ms per SGD step (batch {agent.config['batch_size']})")
+
+    test_env_config = json.loads((CONFIGS / "HighwayEnv" / "env.json").read_text())
+    test_env_config["max_episode_steps"] = DQN_TEST_STEPS
+    test_env = load_environment(test_env_config, device=dev)
+    recovered = load_agent(DQN_AGENT, test_env, device=dev)
+    test = Evaluation(test_env, recovered, directory=directory, num_episodes=1, sim_seed=0,
+                      recover=True)
+    for key, value in agent.train_state.params.items():
+        expect(torch.equal(recovered.train_state.params[key], value),
+               f"latest.tar did not restore {key}")
+    reset_launches()
+    started = time.time()
+    test.test()
+    torch.cuda.synchronize()
+    seconds = time.time() - started
+    episode = json.loads((test.run_directory / Evaluation.EPISODES_FILE).read_text()
+                         .splitlines()[-1])
+    expect(1 <= episode["length"] <= DQN_TEST_STEPS and np.isfinite(episode["total_reward"]),
+           f"greedy test episode: {episode}")
+    print(f"  greedy test() of the recovered agent: return {episode['total_reward']!r} in "
+          f"{episode['length']} steps, {seconds / episode['length'] * 1e3!r} ms per step")
+    launches = {k: v + read_launches()[k] for k, v in launches.items()}
+    return {"launches": launches, "sgd_ms": sgd_ms, "env_step_ms": train_ms}
+
+
+def greedy_returns(env, model, params, episodes: int, dev, seed: int = 123,
+                   max_steps: int = 200) -> torch.Tensor:
+    """Total reward of the greedy policy over ``episodes`` CartPole episodes
+    run side by side on the card (tests/test_dqn_curve_parity.py::greedy_eval)."""
+    from rl_agents_torch.agents.dqn.agent import q_values
+
+    env_params = env.default_params(dev)
+    states, obs = env.reset(env_params, torch.Generator(device=dev).manual_seed(seed), episodes)
+    done = torch.zeros(episodes, dtype=torch.bool, device=dev)
+    total = torch.zeros(episodes, device=dev)
+    with torch.no_grad():
+        for _ in range(max_steps):
+            actions = q_values(model, params, obs.float()).argmax(dim=1)
+            out = env.step(env_params, states, actions)
+            total += torch.where(done, 0.0, out.reward)
+            done = done | out.terminated | out.truncated
+            states, obs = out.state, out.obs
+    return total
+
+
+def check_graph_against_eager(env, dev):
+    """The captured step replayed against the eager step: one seed, so one
+    initial state and one sequence of draws, two segments of
+    ``GRAPH_CHECK_STEPS`` steps each way (training from the fifth step); the
+    ring and the counters equal, the parameters within ``MODEL_TOLERANCE``.
+    The second segment, with no capture in it, is timed."""
+    from rl_agents_torch.models.optimizers import optimizer_factory
+    from rl_agents_torch.models.zoo import MultiLayerPerceptron
+    from rl_agents_torch.parallel.actor_learner import make_actor_learner
+
+    kw = dict(CURVE, learning_starts=4 * CURVE["num_envs"], device=dev)
+    for key in ("total_steps", "segment", "seed"):
+        kw.pop(key)
+    runs = []
+    for graph in (False, True):
+        model = MultiLayerPerceptron(4, CURVE_LAYERS, out=2)
+        init_fn, segment_fn = make_actor_learner(env, model, optimizer_factory("ADAM"),
+                                                 cuda_graph=graph, **kw)
+        state = init_fn(torch.Generator(device=dev).manual_seed(1))
+        segment_fn(state, steps=GRAPH_CHECK_STEPS)  # with the graph: captured here
+        torch.cuda.synchronize()
+        started = time.time()
+        segment_fn(state, steps=GRAPH_CHECK_STEPS)
+        torch.cuda.synchronize()
+        runs.append((state, (time.time() - started) / GRAPH_CHECK_STEPS * 1e3))
+    (eager, eager_ms), (graph, graph_ms) = runs
+    for field in ("action", "reward", "terminal", "state"):
+        expect(torch.equal(getattr(eager.buffer, field), getattr(graph.buffer, field)),
+               f"CUDA graph against eager: the ring's {field} differs")
+    for field in ("position", "size", "time", "completed_count"):
+        expect(int(getattr(eager, field)) == int(getattr(graph, field)),
+               f"CUDA graph against eager: {field} differs")
+    worst = max(float((eager.params[k] - graph.params[k]).abs().max()) for k in eager.params)
+    expect(worst <= MODEL_TOLERANCE and int(graph.opt_state["count"]) > 0,
+           f"CUDA graph against eager: parameters {worst!r} apart")
+    print(f"fused CartPole step, 2 x {GRAPH_CHECK_STEPS} steps from one seed: "
+          f"eager {eager_ms!r} ms a step, CUDA graph {graph_ms!r} ms a step; ring and counters "
+          f"equal, parameters within {worst!r}")
+
+
+def check_fused_learner(dev) -> dict:
+    """(a) The CartPole learning curve at tests/test_dqn_curve_parity.py's
+    settings, one step captured in a CUDA graph and replayed; the greedy mean
+    over 64 episodes must reach the reference band's lower edge. (b) The
+    EgoAttention learner at bench_dqn_ego_attention's sizes: a warm segment,
+    a timed one, and a profiled short one."""
+    from rl_agents_torch.envs.cartpole import CartPoleEnv
+    from rl_agents_torch.factory import load_environment
+    from rl_agents_torch.models.optimizers import optimizer_factory
+    from rl_agents_torch.models.zoo import EgoAttentionNetwork, MultiLayerPerceptron
+    from rl_agents_torch.parallel.actor_learner import make_actor_learner, train_dqn_fused
+
+    band = json.loads((REPO / "tests" / "data" / "dqn_cartpole_reference_curve.json").read_text())
+    lower_edge = band["final_window_mean"] - 2 * band["final_window_std"]
+    env = CartPoleEnv(max_episode_steps=200)
+    check_graph_against_eager(env, dev)
+    model = MultiLayerPerceptron(4, CURVE_LAYERS, out=2)
+    reset_launches()
+    torch.cuda.synchronize()
+    started = time.time()
+    state, history = train_dqn_fused(env, model, device=dev, **CURVE)
+    torch.cuda.synchronize()
+    seconds = time.time() - started
+    returns = greedy_returns(env, model, state.params, CURVE_EPISODES, dev)
+    mean = float(returns.mean())
+    steps, curve_seconds = CURVE["total_steps"], seconds
+    print(f"(a) fused DQN on CartPole, {steps} steps x {CURVE['num_envs']} envs in a CUDA graph: "
+          f"{seconds!r} s, {steps * CURVE['num_envs'] / seconds!r} env-steps/s, "
+          f"{seconds / steps * 1e3!r} ms per step; EMA of completed returns "
+          f"{[round(h, 1) for h in history]}; greedy mean over {CURVE_EPISODES} episodes "
+          f"{mean!r} (bar {lower_edge!r})")
+    expect(int(state.time) == steps and int(state.opt_state["count"]) > 0,
+           "fused CartPole learner: the steps or updates did not run")
+    expect(mean >= lower_edge, f"fused DQN greedy mean {mean!r} below the reference band's "
+                               f"lower edge {lower_edge!r}")
+    launches = read_launches()
+
+    handle = load_environment(CONFIGS / "HighwayEnv" / "env.json", device=dev)
+    functional = handle.functional
+    ego = EgoAttentionNetwork(functional.observation_space.shape[-1], **EGO_MODEL)
+    init_fn, segment_fn = make_actor_learner(functional, ego, optimizer_factory("ADAM"),
+                                             device=dev, **EGO_FUSED)
+    state = init_fn(torch.Generator(device=dev).manual_seed(0), env_params=handle.params)
+    reset_launches()
+    segment_fn(state, steps=EGO_FUSED_WARM)
+    torch.cuda.synchronize()
+    started = time.time()
+    _, reward = segment_fn(state, steps=EGO_FUSED_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.time() - started
+    rate = EGO_FUSED_STEPS * EGO_FUSED["num_envs"] / seconds
+    expect(bool(torch.isfinite(reward)) and int(state.opt_state["count"]) > 0
+           and all(bool(torch.isfinite(p).all()) for p in state.params.values()),
+           "fused EgoAttention learner: no update or non-finite parameters")
+    print(f"(b) fused DQN, EgoAttentionNetwork on highway (15 vehicles, 4 lanes), "
+          f"{EGO_FUSED['num_envs']} envs, batch {EGO_FUSED['batch_size']}, capacity "
+          f"{EGO_FUSED['capacity']}: {EGO_FUSED_STEPS} steps in {seconds!r} s, "
+          f"{seconds / EGO_FUSED_STEPS * 1e3!r} ms per step, {rate!r} env-steps/s, "
+          f"{int(state.completed_count)} episodes ended, EMA return "
+          f"{float(state.completed_return)!r}")
+    profiled = profile_plan(lambda: segment_fn(state, steps=EGO_FUSED_PROFILED), host_events=False)
+    print(f"  profiled {EGO_FUSED_PROFILED} steps: {profiled['kernels'] / EGO_FUSED_PROFILED!r} "
+          f"device kernels per step")
+    launches = {k: v + read_launches()[k] for k, v in launches.items()}
+    return {"launches": launches, "curve_mean": mean, "curve_seconds": curve_seconds,
+            "ego_env_steps_per_s": rate, "ego_busy_share": profiled["busy_share"]}
 
 
 def main():
@@ -1379,13 +1694,24 @@ def main():
     print(json.dumps({"highway_batch_paths": {
         path: {key: value for key, value in result.items() if key != "launches"}
         for path, result in highway.items()}}))
+    learner = {}
+    phase("16. models")
+    reset_launches()
+    learner["ego_attention_models"] = check_models(dev)
+    phase("17. DQN agent path")
+    learner["dqn_highway_agent"] = check_dqn_object_path(dev)
+    phase("18. fused actor-learner")
+    learner["dqn_fused"] = check_fused_learner(dev)
+    for path, result in learner.items():
+        paths[path] = result.pop("launches")
+    print(json.dumps({"dqn_learner": learner}))
     for kernel in kernels:
         kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         if kernel["launches"] == 0:
             raise AssertionError(f"no path launched {kernel['name']}")
 
-    phase("16. summary")
+    phase("19. summary")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -236,6 +236,8 @@ class OLOPAgent(AbstractTreeSearchAgent):
     def planner_plan(self, env, observation):
         functional = env.functional
         ub = self.config["upper_bound"]
+        if isinstance(ub, str):  # a bare bound name keeps the default threshold and time
+            ub = dict(self.default_config()["upper_bound"], type=ub)
         actions, lengths, tree = olop_plan(
             functional, env.params, env.state, self.generator,
             num_actions=functional.action_space.n,

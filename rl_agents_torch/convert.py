@@ -12,7 +12,9 @@ and a hash table (``Graph``, ``StochasticGraph``, ``OPDTree``,
 ``StateAwareTree``; ``robust_tree_from_numpy`` for ``RobustTree``), so that a
 tree grown by the JAX package can be continued, re-rooted or backed up here;
 ``highway_state_from_numpy`` takes a highway env state; ``tree_to_numpy`` goes
-the other way for comparisons.
+the other way for comparisons. For a model the weights are the flax
+parameter tree: ``flax_params_to_torch`` loads one into a port model of the
+zoo, ``torch_params_to_flax`` gives a port model's parameters in its layout.
 Tests and ``chip_smoke.py`` use this module; the planning path does not.
 """
 from __future__ import annotations
@@ -114,3 +116,53 @@ def robust_tree_from_numpy(arrays, state_cls, device="cuda", batched: bool = Tru
     from rl_agents_torch.agents.robust.robust import RobustTree
 
     return graph_from_numpy(RobustTree, arrays, state_cls, device=device, batched=batched)
+
+
+def _flax_leaf(tensor: torch.Tensor) -> np.ndarray:
+    """A port parameter in flax's layout: a ``Linear`` weight ``[out, in]``
+    becomes the ``Dense`` kernel ``[in, out]``, a conv weight ``OIHW`` the
+    ``Conv`` kernel ``HWIO``."""
+    array = tensor.detach().cpu().float().numpy()
+    if array.ndim == 2:
+        return array.T
+    if array.ndim == 4:
+        return array.transpose(2, 3, 1, 0)
+    return array
+
+
+def torch_params_to_flax(model: torch.nn.Module) -> dict:
+    """The port model's parameters as the JAX package's parameter tree:
+    ``{"params": {submodule: {..., "kernel"|"bias": array}}}``, with the
+    names flax gives them."""
+    tree: dict = {}
+    for name, tensor in model.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node["kernel" if leaf == "weight" else leaf] = _flax_leaf(tensor)
+    return {"params": tree}
+
+
+def flax_params_to_torch(model: torch.nn.Module, params) -> torch.nn.Module:
+    """Load the JAX package's parameter tree (nested mappings of arrays, with
+    or without the top ``"params"`` key) into ``model`` in place: a ``Dense``
+    kernel ``[in, out]`` is transposed to the ``Linear`` weight, a ``Conv``
+    kernel ``HWIO`` becomes ``OIHW``. Every parameter of the model must be
+    found, with its shape; returns the model."""
+    tree = params.get("params", params) if hasattr(params, "get") else params
+    with torch.no_grad():
+        for name, tensor in model.named_parameters():
+            *path, leaf = name.split(".")
+            node = tree
+            for part in path:
+                node = node[part]
+            array = np.asarray(node["kernel" if leaf == "weight" else leaf], dtype=np.float32)
+            if array.ndim == 2:
+                array = array.T
+            elif array.ndim == 4:
+                array = array.transpose(3, 2, 0, 1)
+            if tuple(array.shape) != tuple(tensor.shape):
+                raise ValueError(f"{name}: flax shape {array.shape} does not fit {tuple(tensor.shape)}")
+            tensor.copy_(torch.as_tensor(np.array(array), device=tensor.device))
+    return model

@@ -86,6 +86,12 @@ class FunctionalEnv:
     def reset(self, params, generator: torch.Generator, batch: int = 1) -> Tuple[Any, Any]:
         raise NotImplementedError
 
+    def reset_noise(self, params, generator: torch.Generator, batch: int = 1):
+        """The random input of ``reset`` for ``batch`` states, for an env whose
+        ``reset`` takes it as ``noise=``; None for an env that draws inside
+        ``reset`` (the fused learner then cannot draw its resets up front)."""
+        return None
+
     def step(self, params, state, action, generator: torch.Generator | None = None,
              noise=None) -> StepOut:
         """One transition of ``[B]`` states. ``noise`` is the env's own random

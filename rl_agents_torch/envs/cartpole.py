@@ -54,9 +54,15 @@ class CartPoleEnv(FunctionalEnv):
         return CartPoleParams(*(torch.tensor(v, dtype=torch.float32, device=device)
                                 for v in values))
 
-    def reset(self, params, generator, batch: int = 1):
+    def reset_noise(self, params, generator, batch: int = 1):
+        """The reset's draw: the ``[batch, 4]`` initial values, uniform in
+        [-0.05, 0.05)."""
         device = params.gravity.device
-        vals = torch.rand((batch, 4), generator=generator, device=device) * 0.1 - 0.05
+        return torch.rand((batch, 4), generator=generator, device=device) * 0.1 - 0.05
+
+    def reset(self, params, generator, batch: int = 1, noise=None):
+        device = params.gravity.device
+        vals = self.reset_noise(params, generator, batch) if noise is None else noise
         state = CartPoleState(vals[:, 0], vals[:, 1], vals[:, 2], vals[:, 3],
                               torch.zeros(batch, dtype=torch.int64, device=device),
                               torch.zeros(batch, dtype=torch.bool, device=device))

@@ -21,6 +21,7 @@ logger = logging.getLogger(__name__)
 
 # name -> "module:Class", imported on first use
 AGENT_REGISTRY: Dict[str, str] = {
+    "DQNAgent": "rl_agents_torch.agents.dqn.agent:DQNAgent",
     "DeterministicPlannerAgent":
         "rl_agents_torch.agents.tree_search.deterministic:DeterministicPlannerAgent",
     "DiscreteRobustPlannerAgent": "rl_agents_torch.agents.robust.robust:DiscreteRobustPlannerAgent",

@@ -1,13 +1,15 @@
-"""Evaluation harness: the agent/environment test loop.
+"""Evaluation harness: the agent/environment train and test loops.
 
-Port of the test loop of ``rl_agents_tpu/trainer/evaluation.py`` (reference:
-rl_agents/trainer/evaluation.py:23-387): episode loop, the seeding protocol
-(sim_seed + episode), run metadata, per-episode metrics. Each finished
-episode is appended to ``episodes.jsonl`` in the run directory and, when
-tensorboardX is installed, written as scalars.
+Port of ``rl_agents_tpu/trainer/evaluation.py`` (reference:
+rl_agents/trainer/evaluation.py:23-387): train/test episode loops (plan ->
+env.step -> ``record``), the seeding protocol (sim_seed + episode), run
+metadata, per-episode metrics, the checkpoint cadence (cubic schedule and the
+best-EMA window, ``saved_models/latest.tar``, ``checkpoint-final`` on close),
+model recovery, and whole-run fused training for agents with
+``"fused": true``. Each finished episode is appended to ``episodes.jsonl`` in
+the run directory and, when tensorboardX is installed, written as scalars.
 
-Not ported yet: training, fused training, batched episodes, model recovery,
-viewers and recorders.
+Not ported yet: batched episodes, viewers and recorders.
 """
 from __future__ import annotations
 
@@ -28,6 +30,13 @@ logger = logging.getLogger(__name__)
 _LOG_FORMAT = "[%(levelname)s] %(asctime)s %(name)s: %(message)s"
 
 
+def capped_cubic_video_schedule(episode: int) -> bool:
+    """True on perfect cubes below 1000, then every 1000 episodes."""
+    if episode < 1000:
+        return int(round(episode ** (1.0 / 3))) ** 3 == episode
+    return episode % 1000 == 0
+
+
 class NullWriter:
     """Metrics sink used when tensorboardX is not installed."""
 
@@ -43,6 +52,7 @@ class NullWriter:
 
 class Evaluation:
     OUTPUT_FOLDER = "out"
+    SAVED_MODELS_FOLDER = "saved_models"
     RUN_FOLDER = "run_{}_{}"
     METADATA_FILE = "metadata.{}.json"
     LOGGING_FILE = "logging.{}.log"
@@ -54,12 +64,12 @@ class Evaluation:
                  directory=None,
                  num_episodes: int = 1000,
                  training: bool = False,
-                 sim_seed: Optional[int] = None):
-        if training:
-            raise NotImplementedError("training is not yet ported to rl_agents_torch")
+                 sim_seed: Optional[int] = None,
+                 recover=None):
         self.env = env
         self.agent = agent
         self.num_episodes = num_episodes
+        self.training = training
         if sim_seed is None:
             sim_seed = int(np.random.default_rng().integers(0, 1_000_000))
         self.sim_seed = sim_seed
@@ -75,7 +85,12 @@ class Evaluation:
         self._log_handler = self.write_logging()
         self.write_metadata()
         self.episode_rewards: List[float] = []
+        self.filtered_agent_stats = 0.0
+        self.best_agent_stats = (-np.inf, 0)
         self.observation = None
+        self.recover = recover
+        if self.recover:
+            self.load_agent_model(self.recover)
 
     def _make_writer(self):
         try:
@@ -84,7 +99,25 @@ class Evaluation:
             return NullWriter()
         return SummaryWriter(str(self.run_directory))
 
+    def train(self):
+        self.training = True
+        if self.agent.config.get("fused") and hasattr(self.agent, "train_fused") \
+                and hasattr(self.env, "functional"):
+            self.run_fused_training()
+        else:
+            self.run_episodes()
+        self.close()
+
+    def run_fused_training(self):
+        """Whole-run fused actor-learner training (agent config ``"fused":
+        true``): the agent trains as one on-device loop
+        (``parallel/actor_learner.py``); ``close`` then checkpoints it."""
+        logger.info("Fused on-device training: %d episode-equivalents", self.num_episodes)
+        ema = self.agent.train_fused(self.env, self.num_episodes, writer=self.writer)
+        logger.info("Fused training done: EMA completed-episode return %.1f", ema)
+
     def test(self):
+        self.training = False
         self.agent.eval()
         self.run_episodes()
         self.close()
@@ -99,6 +132,7 @@ class Evaluation:
                 reward, terminal = self.step()
                 rewards.append(reward)
             self.after_all_episodes(self.episode, rewards, time.time() - start_time)
+            self.after_some_episodes(self.episode, rewards)
 
     def step(self):
         """plan -> env.step -> record (reference: evaluation.py:163-194)."""
@@ -134,6 +168,50 @@ class Evaluation:
                                 "duration": duration}) + "\n")
         self.episode_rewards.append(total)
         logger.info("Episode %d score: %.1f", episode, total)
+
+    def after_some_episodes(self, episode: int, rewards,
+                            best_increase: float = 1.1, episodes_window: int = 50):
+        """Checkpoint on the cubic schedule, and as "best" when the filtered
+        score beats the best by ``best_increase`` after a window."""
+        if not self.training:
+            return
+        if capped_cubic_video_schedule(episode):
+            self.save_agent_model(episode)
+        best_reward, best_episode = self.best_agent_stats
+        self.filtered_agent_stats += 1 / episodes_window * (np.sum(rewards) - self.filtered_agent_stats)
+        if self.filtered_agent_stats > best_increase * best_reward \
+                and episode >= best_episode + episodes_window:
+            self.best_agent_stats = (self.filtered_agent_stats, episode)
+            self.save_agent_model("best")
+
+    def save_agent_model(self, identifier):
+        """Save the agent to ``saved_models/latest.tar`` and to the run's
+        ``checkpoint-<identifier>.tar``; return the latter's path (False for
+        a stateless agent)."""
+        permanent_folder = self.directory / self.SAVED_MODELS_FOLDER
+        os.makedirs(permanent_folder, exist_ok=True)
+        self.agent.save(filename=permanent_folder / "latest.tar")
+        episode_path = self.agent.save(filename=self.run_directory / f"checkpoint-{identifier}.tar")
+        if episode_path:
+            logger.info("Saved %s model to %s", self.agent.__class__.__name__, episode_path)
+        return episode_path
+
+    def load_agent_model(self, model_path):
+        """Load the agent from ``model_path``; ``True`` names
+        ``saved_models/latest.tar``, and a relative name that does not exist
+        is looked up in ``saved_models/``."""
+        if model_path is True:
+            model_path = self.directory / self.SAVED_MODELS_FOLDER / "latest.tar"
+        if isinstance(model_path, str):
+            model_path = Path(model_path)
+            if not model_path.exists():
+                model_path = self.directory / self.SAVED_MODELS_FOLDER / model_path
+        try:
+            model_path = self.agent.load(filename=model_path)
+            if model_path:
+                logger.info("Loaded %s model from %s", self.agent.__class__.__name__, model_path)
+        except FileNotFoundError:
+            logger.warning("No pre-trained model found at the desired location.")
 
     @property
     def default_directory(self) -> Path:
@@ -172,6 +250,8 @@ class Evaluation:
         self.agent.reset()
 
     def close(self):
+        if self.training:
+            self.save_agent_model("final")
         self.writer.close()
         logging.getLogger().removeHandler(self._log_handler)
         self._log_handler.close()

@@ -67,8 +67,11 @@ def test_agent_class_resolves_reference_paths_and_refuses_the_rest():
     assert mcts.__module__ == "rl_agents_torch.agents.tree_search.mcts"
     gape = agent_class("<class 'rl_agents.agents.tree_search.mdp_gape.MDPGapEAgent'>")
     assert gape.__module__ == "rl_agents_torch.agents.tree_search.mdp_gape"
+    dqn = agent_class("<class 'rl_agents.agents.deep_q_network.pytorch.DQNAgent'>")
+    assert dqn is agent_class("DQNAgent")
+    assert dqn.__module__ == "rl_agents_torch.agents.dqn.agent"
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        agent_class("DQNAgent")
+        agent_class("FTQAgent")
 
 
 @pytest.mark.parametrize("path,module", [

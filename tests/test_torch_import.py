@@ -150,6 +150,17 @@ def test_entry_points_raise_without_a_card():
         opd_plan_continue(CartPoleEnv(), env.params, tree, env.state, generator, **opd_kw)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         state_aware_plan_batch(CartPoleEnv(), env.params, env.state, obs, generator, **opd_kw)
+    from rl_agents_torch.models.optimizers import optimizer_factory
+    from rl_agents_torch.models.zoo import MultiLayerPerceptron
+    from rl_agents_torch.parallel.actor_learner import make_actor_learner, train_dqn_fused
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_agent({"__class__": "DQNAgent"}, env)
+    model = MultiLayerPerceptron(4, (8,), out=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_actor_learner(CartPoleEnv(), model, optimizer_factory("ADAM"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_dqn_fused(CartPoleEnv(), model, total_steps=1, segment=1)
 
 
 def test_agents_not_yet_ported_name_what_is_missing():
@@ -158,7 +169,7 @@ def test_agents_not_yet_ported_name_what_is_missing():
     env = load_environment({"id": "cartpole"}, device="cpu")
     with pytest.raises(NotImplementedError, match="mcts_closed_loop"):
         load_agent({"__class__": "MCTSAgent", "closed_loop": True}, env, device="cpu")
-    for name in ("BRUEAgent", "ValueIterationAgent", "DQNAgent", "RobustEPCAgent"):
+    for name in ("BRUEAgent", "ValueIterationAgent", "FTQAgent", "RobustEPCAgent"):
         with pytest.raises(NotImplementedError, match=name):
             load_agent({"__class__": name}, env, device="cpu")
     for env_id in ("gridenv-v0", "sailing-8-v0", "parking-v0"):

@@ -162,3 +162,35 @@ def test_agent_acts_like_the_jax_agent_on_the_loop_mdp():
         obs_j, reward_j, *_ = env_j.step(action_j)
         obs_t, reward_t, *_ = env_t.step(action_t)
         assert int(obs_t) == int(obs_j) and reward_t == reward_j
+
+
+@pytest.mark.parametrize("relpath", ["FiniteMDPEnv/agents/olop.json",
+                                     "FiniteMDPEnv/haystack/agents/olop.json",
+                                     "FiniteMDPEnv/haystack/agents/kl-olop.json"])
+def test_string_upper_bound_plans_as_the_dict_form(relpath):
+    """A bare ``upper_bound`` name crashes the JAX agent's first plan; the
+    port reads it as ``{"type": name}`` and plans as JAX does given that."""
+    from rl_agents_torch.factory import load_agent as torch_load_agent
+    from rl_agents_torch.factory import load_agent_config
+    from rl_agents_torch.factory import load_environment as torch_load_environment
+    from rl_agents_tpu.factory import load_agent as jax_load_agent
+    from rl_agents_tpu.factory import load_environment as jax_load_environment
+
+    config = load_agent_config(CONFIGS / relpath)
+    assert isinstance(config["upper_bound"], str)
+    env_path = CONFIGS / "FiniteMDPEnv" / "env_loop.json"
+    env_j = jax_load_environment(env_path)
+    obs_j, _ = env_j.reset(seed=0)
+    with pytest.raises(AttributeError, match="'str' object has no attribute 'get'"):
+        jax_load_agent(dict(config), env_j).plan(obs_j)
+
+    env_t = torch_load_environment(env_path, device="cpu")
+    obs_t, _ = env_t.reset(seed=0)
+    agent_t = torch_load_agent(dict(config), env_t, device="cpu")
+    agent_j = jax_load_agent(dict(config, upper_bound={"type": config["upper_bound"]}), env_j)
+    for _ in range(3):
+        plan_j, plan_t = agent_j.plan(obs_j), agent_t.plan(obs_t)
+        assert [int(a) for a in plan_t] == [int(a) for a in plan_j]
+        obs_j, reward_j, *_ = env_j.step(plan_j[0])
+        obs_t, reward_t, *_ = env_t.step(plan_t[0])
+        assert int(obs_t) == int(obs_j) and reward_t == reward_j
