@@ -36,8 +36,9 @@ non-zero without its final line:
    agent's default confidence 0.9, two dense ``kl_bound`` launches per
    (episode, depth) step, the Newton trips of its chance backups counted,
    and the first 64 trees of a plan on a deterministic garnet checked against
-   the CPU plan under the same noise (3 timed plans and one with a read-back
-   every Newton trip at confidence 1.0, one timed plan at 0.9);
+   the CPU plan under the same noise (3 timed plans, one with a read-back
+   every Newton trip and one profiled at confidence 1.0; one timed plan, not
+   profiled, at 0.9);
 9. the MDP-GapE agent path: ``mdp-gape.json`` on ``env_garnet.json`` for one
    episode, cut to 5 steps;
 10. the stochastic GBOP batch path: ``gbop_stochastic_plan_batch`` on the
@@ -61,7 +62,8 @@ non-zero without its final line:
     ``kl_bound`` launches a plan); KL-OLOP at ``kl-olop.json``'s budget (4096
     trees, 72 x 6, one ``kl_bound_indexed_`` launch per episode) and DROP on
     ``merge-v0`` (4096 trees x 2 models, 40 expansions); each timed, profiled
-    and its first 64 trees held against the CPU plan under the same noise;
+    (MCTS over 3 episodes of its 23) and its first 64 trees held against the
+    CPU plan under the same noise;
 15. the highway agent paths, 5 steps each: ``DeterministicPlannerAgent.json``,
     ``MCTSAgent.json``, ``OLOPAgent/kl-olop.json`` and
     ``IntervalRobustPlannerAgent/baseline.json`` on ``HighwayEnv/env.json``,
@@ -85,16 +87,56 @@ non-zero without its final line:
     (b) the EgoAttentionNetwork learner at ``bench_dqn_ego_attention``'s
     sizes (highway 15 vehicles, 4 lanes; 64 envs, batch 64, capacity
     10,240), env-steps/s and a profiled short segment;
-19. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
-    last line. The DQN paths launch no hand kernel: their products and
-    softmax are ``torch.matmul`` / ``softmax``, as the JAX package computes
-    them outside any Pallas kernel.
+19. dynamic programming: ``ValueIterationAgent/baseline.json`` on the uncut
+    ``HighwayEnv/env.json`` (its TTC view derived again at every act),
+    ``SailingEnv/agents/vi.json`` on ``SailingEnv/env.json``, and
+    ``RobustValueIterationAgent`` and ``ValueIterationAgent`` on
+    ``FiniteMDPEnv/large``, 5-step episodes through ``Evaluation.test()``,
+    each Q table on the card equal to the CPU's; the stochastic contraction
+    on a seeded random MDP of 512 states within 1e-6 of the CPU's; seconds
+    per act() and updates to convergence;
+20. the MCTS-with-prior batch path at the JAX bench's MCTS-highway size:
+    ``mcts_prior_plan_batch``, 4096 trees, 23 x 8, 15 vehicles on 4 lanes,
+    the prior the DQN MLP [512, 512] of
+    ``MCTSWithPriorPolicyAgent/baseline.json`` at temperature 0.5 with
+    seeded weights, one forward on [4096, 75] at every expansion and rollout
+    step, the forwards counted; 3 timed plans, a plan of 3 episodes
+    profiled, the first 64 trees of a plan held against the CPU plan under
+    the same noise;
+21. the MCTS-with-prior agent paths, 5 steps each: ``baseline.json`` with its
+    ``model_save`` pointing at a DQN checkpoint written here with
+    ``DQNAgent.save``, and ``vi_prior.json`` with ``simplify``;
+22. FTQ: ``HighwayEnv/agents/FTQAgent/baseline.json`` through
+    ``Evaluation(training=True).train()`` for 71 episodes' worth of samples
+    (one batch of 994, fitted once: 15 epochs x 400 regression steps), ms per
+    regression step and per ``update()``; then one epoch (400 steps under the
+    same indices) on the card and on the CPU, in float32 and in float64, from
+    fresh parameters and from the trained ones: the float64 epochs and the
+    first step's float32 gradients within 1e-5 of each leaf's largest entry;
+    the float32 epochs measured against each other and the float64 one, the
+    double-DQN argmax differences counted;
+23. BFTQ at ``bench_bftq_fit``'s sizes (S = 4096, D = 75, A = 3, 10 budgets,
+    ``BudgetedMLP`` [64, 64], 50 ADAM steps): the targets on the card
+    against the CPU's (mixture indices equal, values within 1e-5), one
+    target computation plus fit epoch timed in states/s; then
+    ``TwoWayEnv/agents/BFTQAgent/baseline.json`` at its width (100 budgets x
+    5 actions, 500 hull points a state) through ``Evaluation.train()`` for
+    one batch of 8 episodes, cut to 2 epochs x 100 regression steps (from
+    15 x 5000), so that the second epoch bootstraps through the hull; its
+    target computation profiled on 256 transitions, the first 8 of them
+    held against the CPU (mixture indices equal, targets within 1e-5);
+24. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
+    last line. The DQN paths and the paths of phases 19-23 launch no hand
+    kernel: their products and softmax are ``torch.matmul`` / ``softmax``,
+    and the hull is tensor functions, as the JAX package computes them
+    outside any Pallas kernel.
 
 Every path is driven with every kernel launch counter set to 0 just before
 and read just after.
 """
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -136,8 +178,10 @@ GAPE = dict(num_actions=4, episodes=20, horizon=5, gamma=0.7, accuracy=0.0, conf
             transition_threshold_coeff=0.1, width=2)
 GAPE_DEFAULT = dict(GAPE, confidence=0.9)
 # (label, sizes, timed plans, a plan with a read-back every trip)
-GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE, PLANS, True),
-              ("agent default, confidence 0.9", GAPE_DEFAULT, 1, False))
+# (label, sizes, timed plans, a plan with a read-back every Newton trip,
+# profiled): the 0.9 plan's 164k kernels took the profiler about half a minute
+GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE, PLANS, True, True),
+              ("agent default, confidence 0.9", GAPE_DEFAULT, 1, False, False))
 GAPE_STATES = 16
 # the planner runs while ``episode <= episodes``: episodes + 1 episodes of
 # horizon steps, an upper and a lower bound each
@@ -182,6 +226,11 @@ HW_OLOP = dict(num_actions=HW_ACTIONS, episodes=72, horizon=6, gamma=HW_OLOP_GAM
                threshold_coeff=2.0, continuation_uniform=True)
 HW_DROP = dict(num_actions=HW_ACTIONS, expansions=200 // HW_ACTIONS, gamma=0.9)
 HIGHWAY_AGENT_STEPS = 5
+# MCTS on highway launches about 2,900 kernels an episode: its profiled
+# plan runs a few episodes of the same trees. KL-OLOP's profiled plan stays
+# whole: the profiler's count of its KL kernels is held to one an episode,
+# and a shorter trace once lost one of them with a few hundred other records
+HW_PROFILED_EPISODES = 3
 CPU = torch.device("cpu")
 
 # the DQN learner: the flagship model at __graft_entry__.entry()'s widths and
@@ -205,6 +254,25 @@ GRAPH_CHECK_STEPS = 100
 # bench.py:436-455: highway at 15 vehicles, 4 lanes, 40 steps; 64 envs
 EGO_FUSED = dict(num_envs=64, batch_size=64, capacity=10_240)
 EGO_FUSED_WARM, EGO_FUSED_STEPS, EGO_FUSED_PROFILED = 50, 300, 10
+# slice 7: dynamic programming (5-step agent episodes; the stochastic
+# contraction on a random MDP of 512 states), MCTS with the DQN prior of
+# MCTSWithPriorPolicyAgent/baseline.json at the JAX bench's MCTS-highway size,
+# FTQ (71 episodes' worth: one batch of 994 samples, as near_split(71 * 14,
+# size_bins=1000) gives), BFTQ at bench_bftq_fit's sizes (bench.py:750-819)
+# and the two-way BFTQAgent cut to 1 epoch
+DP_AGENT_STEPS = 5
+DP_STOCHASTIC_STATES = 512
+DP_STOCHASTIC_REL = 1e-6
+PRIOR_LAYERS, PRIOR_TEMPERATURE = (512, 512), 0.5
+PRIOR_PROFILED_EPISODES = 3
+FTQ_EPISODES = 71
+FTQ_WITNESS = (1, 10, 100, 400)  # steps after which the epochs are compared
+BFTQ_STATES, BFTQ_BUDGETS, BFTQ_REGRESSION = 4096, 10, 50
+BFTQ_TOLERANCE = 1e-5
+# the two-way agent: 2 epochs, so that the second bootstraps through the
+# P = 500 hull over all 112 x 10 transitions of 8 episodes
+BFTQ_AGENT_EPISODES, BFTQ_AGENT_EPOCHS, BFTQ_AGENT_REGRESSION = 8, 2, 100
+BFTQ_PROFILED, BFTQ_HELD = 256, 8
 
 
 STARTED = time.time()
@@ -780,7 +848,7 @@ def check_gape_batch_path(dev) -> dict:
     fields = lambda best, used, tree: dict(tree_to_numpy(tree)._asdict(), best=best.cpu().numpy(),
                                            episodes_used=used.cpu().numpy())
     config_launches = None
-    for label, kw, plans, read_back in GAPE_CASES:
+    for label, kw, plans, read_back, profiled_plan in GAPE_CASES:
         print(f"-- {label}")
         env, params, states = garnet_case(dev, branching=2)
         states0 = states(dev, TREES)
@@ -808,12 +876,15 @@ def check_gape_batch_path(dev) -> dict:
             finally:
                 port_math.NEWTON_BLOCK = block
             print(f"  one plan with a read-back every trip: {ms!r} ms, {newton_line()}")
-        results = []
-        profiled = profile_plan(lambda: results.append(plan()), host_events=False)
-        if profiled["kl_launches"] != GAPE_KL_LAUNCHES:
-            raise AssertionError(f"the profiler saw {profiled['kl_launches']} KL kernels in one "
-                                 f"plan, expected {GAPE_KL_LAUNCHES}")
-        best, used, tree = results[0]
+        if profiled_plan:
+            results = []
+            profiled = profile_plan(lambda: results.append(plan()), host_events=False)
+            if profiled["kl_launches"] != GAPE_KL_LAUNCHES:
+                raise AssertionError(f"the profiler saw {profiled['kl_launches']} KL kernels in "
+                                     f"one plan, expected {GAPE_KL_LAUNCHES}")
+            best, used, tree = results[0]
+        else:
+            best, used, tree = plan()
         if not ((best >= 0) & (best < kw["num_actions"])).all() \
                 or not (used == kw["episodes"] + 1).all() \
                 or not torch.isfinite(tree.c_value_upper).all() \
@@ -1134,14 +1205,17 @@ def drop_case(dev):
 
 def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, close, work: int,
                        unit: str, kl_bound: int = 0, kl_bound_indexed: int = 0,
-                       trees: int | None = None, validate=None) -> dict:
+                       trees: int | None = None, validate=None, short=None) -> dict:
     """One highway batch path: ``run(device, n, noise)`` plans the first
     ``n`` trees (noise None: drawn from a generator on the device).
     ``PLANS`` timed plans with the launches of each KL form counted (the given
     numbers per plan; no warm-up plan: phase 3 and the earlier paths warmed
     the kernels, and the median takes the rest), then one profiled plan under
     noise drawn on the CPU, whose first ``CPU_SUBSET`` trees are held against
-    the CPU plan of the same trees."""
+    the CPU plan of the same trees. ``short``, ``(episodes, run_short(device,
+    n), KL launches)``, profiles a plan of fewer episodes instead, since
+    reading a trace takes time in proportion to its kernels; the plan under
+    noise then runs unprofiled."""
     trees = trees or TREES
     subset = CPU_SUBSET
     plan = lambda: run(dev, trees, None)
@@ -1155,10 +1229,19 @@ def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, clos
     print(f"  {launches} launches in {PLANS} plans; {sweep_line(trees)}")
     noise = make_noise(trees)
     results = []
-    profiled = profile_plan(lambda: results.append(run(dev, trees, noise)), host_events=False)
-    if profiled["kl_launches"] != kl_bound + kl_bound_indexed:
+    if short is None:
+        profiled = profile_plan(lambda: results.append(run(dev, trees, noise)), host_events=False)
+        kl_expected = kl_bound + kl_bound_indexed
+    else:
+        episodes, run_short, kl_expected = short
+        profiled = profile_plan(lambda: run_short(dev, trees), host_events=False)
+        profiled["profiled_episodes"] = episodes
+        print(f"  the profiled plan ran {episodes} episodes: "
+              f"{profiled['kernels'] / episodes!r} device kernels an episode")
+        results.append(run(dev, trees, noise))
+    if profiled["kl_launches"] != kl_expected:
         raise AssertionError(f"{name}: the profiler saw {profiled['kl_launches']} KL kernels in "
-                             f"one plan, expected {kl_bound + kl_bound_indexed}")
+                             f"the profiled plan, expected {kl_expected}")
     got = fields(results[0])
     if validate is not None:
         validate(got)
@@ -1167,7 +1250,8 @@ def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, clos
     print(f"  CPU plan of {subset} trees: {time.time() - started!r} s")
     same_on_cpu(name, got, want, exact, close, subset)
     return {"launches": launches, "ms": ms, "kernels": profiled["kernels"],
-            "busy_share": profiled["busy_share"]}
+            "busy_share": profiled["busy_share"],
+            **({"profiled_episodes": short[0]} if short else {})}
 
 
 def expect(condition: bool, message: str):
@@ -1205,7 +1289,10 @@ def check_highway_batch_paths(dev) -> dict:
         ("actions", "lengths", "count", "parent"), ("value",), TREES * EPISODES * HORIZON,
         "env-steps",
         validate=lambda g: expect((g["count"][:, 0] == EPISODES).all()
-                                  and np.isfinite(g["value"]).all(), "MCTS on highway: counts"))
+                                  and np.isfinite(g["value"]).all(), "MCTS on highway: counts"),
+        short=(HW_PROFILED_EPISODES, lambda d, n: batch.mcts_plan_batch(
+            env, params(d), states(d, n), gen(d, None), probs, probs, device=d,
+            **dict(HW_MCTS, episodes=HW_PROFILED_EPISODES)), 0))
 
     print("-- OPD")
     P = HW_OPD["plan_capacity"]
@@ -1613,6 +1700,592 @@ def check_fused_learner(dev) -> dict:
             "ego_env_steps_per_s": rate, "ego_busy_share": profiled["busy_share"]}
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: dynamic programming, MCTS with a prior, FTQ and BFTQ
+# ---------------------------------------------------------------------------
+
+def timed_agent_episode(dev, name: str, env, agent, steps_note: str = "") -> dict:
+    """One test episode of ``agent`` through ``Evaluation.test()`` with the
+    KL counters zeroed before and read after (no KL launch is expected);
+    returns the episode, its seconds per ``act()`` and the launches."""
+    from rl_agents_torch.trainer.evaluation import Evaluation
+
+    evaluation = Evaluation(env, agent, directory=REPO / "out" / "chip_smoke", num_episodes=1,
+                            training=False, sim_seed=0)
+    reset_launches()
+    started = time.time()
+    evaluation.test()
+    torch.cuda.synchronize()
+    seconds = time.time() - started
+    launches = read_launches()
+    episode = json.loads((evaluation.run_directory / Evaluation.EPISODES_FILE).read_text()
+                         .splitlines()[-1])
+    expect(np.isfinite(episode["total_reward"]) and episode["length"] >= 1,
+           f"{name}: invalid episode {episode}")
+    expect_launches(name, launches, 0, 0)
+    per_act = seconds / episode["length"]
+    print(f"{name}: return {episode['total_reward']!r} in {episode['length']} steps, "
+          f"{per_act!r} s per act(){steps_note}, launches {launches}")
+    return {"launches": launches, "s_per_act": per_act}
+
+
+def same_q_table(name: str, got, want, exact: bool):
+    """A Q table computed on the card against the CPU's: equal in the
+    deterministic and sparse encodings, within DP_STOCHASTIC_REL of the
+    largest entry in the stochastic one."""
+    got, want = np.asarray(got), np.asarray(want)
+    err = float(np.abs(got - want).max())
+    if exact:
+        expect(np.array_equal(got, want), f"{name}: the card's Q table differs from the CPU's "
+                                          f"by {err!r}")
+    else:
+        expect(err <= DP_STOCHASTIC_REL * float(np.abs(want).max()),
+               f"{name}: the card's Q table differs from the CPU's by {err!r}")
+    print(f"  {name}: Q table {got.shape} on the card {'equal to' if exact else 'within'} "
+          f"the CPU's (max|diff| {err!r})")
+
+
+def check_dynamic_programming(dev) -> dict:
+    """Value Iteration on the uncut highway TTC view and on Sailing, Robust
+    and plain Value Iteration on FiniteMDPEnv/large, and the stochastic
+    contraction on a random MDP: each Q table on the card against the CPU's,
+    the updates to convergence, and seconds per act()."""
+    from rl_agents_torch.agents.dynamic_programming import bellman
+    from rl_agents_torch.factory import load_agent, load_environment
+
+    paths = {}
+    highway = json.loads((CONFIGS / "HighwayEnv" / "env.json").read_text())
+    highway["max_episode_steps"] = DP_AGENT_STEPS
+    vi_config = CONFIGS / "HighwayEnv" / "agents" / "ValueIterationAgent" / "baseline.json"
+    env = load_environment(highway, device=dev)
+    agent = load_agent(vi_config, env, device=dev)
+    expect(env.functional.vehicles == 15 and agent.rederive_each_act,
+           "ValueIterationAgent on highway: not the uncut env's TTC view")
+    cpu_env = load_environment(highway, device="cpu")
+    cpu_env.state = type(env.state)(*(x.cpu() for x in env.state))
+    cpu_agent = load_agent(vi_config, cpu_env, device="cpu")
+    cpu_agent.act(None)
+    agent.act(None)
+    same_q_table("ValueIterationAgent on highway's TTC view "
+                 f"({agent.state_action_value.shape[0]} states)", agent.state_action_value,
+                 cpu_agent.state_action_value, exact=True)
+    paths["vi_highway_agent"] = timed_agent_episode(
+        dev, "ValueIterationAgent (baseline.json) on highway", env, agent,
+        f", {bellman.state_action_value.iterations} updates an act (iterations "
+        f"{agent.config['iterations']})")
+
+    sailing = json.loads((CONFIGS / "SailingEnv" / "env.json").read_text())
+    sailing["max_episode_steps"] = DP_AGENT_STEPS
+    started = time.time()
+    env = load_environment(sailing, device=dev)
+    agent = load_agent(CONFIGS / "SailingEnv" / "agents" / "vi.json", env, device=dev)
+    torch.cuda.synchronize()
+    solve = time.time() - started
+    updates = bellman.state_action_value.iterations
+    cpu_agent = load_agent(CONFIGS / "SailingEnv" / "agents" / "vi.json",
+                           load_environment(sailing, device="cpu"), device="cpu")
+    same_q_table(f"vi.json on Sailing ({agent.mode}, {agent.state_action_value.shape[0]} states)",
+                 agent.state_action_value, cpu_agent.state_action_value, exact=True)
+    print(f"  Sailing solve: {updates} updates, {solve!r} s with the env")
+    paths["vi_sailing_agent"] = timed_agent_episode(dev, "ValueIterationAgent (vi.json) on "
+                                                    "Sailing", env, agent)
+
+    large = CONFIGS / "FiniteMDPEnv" / "large"
+    for name, config in (("RobustValueIterationAgent", "robust_value_iteration.json"),
+                         ("ValueIterationAgent", "value_iteration.json")):
+        env_config = json.loads((large / "env_1.json").read_text())
+        env_config["max_episode_steps"] = DP_AGENT_STEPS
+        env = load_environment(env_config, device=dev)
+        agent = load_agent(large / "agents" / config, env, device=dev)
+        cpu_agent = load_agent(large / "agents" / config,
+                               load_environment(env_config, device="cpu"), device="cpu")
+        same_q_table(f"{name} on FiniteMDPEnv/large", agent.state_action_value,
+                     cpu_agent.state_action_value, exact=True)
+        paths[f"{name}_large"] = timed_agent_episode(dev, f"{name} ({config}) on "
+                                                     "FiniteMDPEnv/large", env, agent)
+
+    # the stochastic contraction ([S, A, S] x [S]) of a random MDP, seeded
+    rng = np.random.default_rng(0)
+    S, A = DP_STOCHASTIC_STATES, 4
+    transition = rng.random((S, A, S)).astype(np.float32)
+    transition /= transition.sum(-1, keepdims=True)
+    arrays = (transition, rng.normal(size=(S, A)).astype(np.float32), rng.random(S) < 0.05,
+              np.zeros((), np.int64))
+    tables = []
+    reset_launches()
+    for device in (dev, CPU):
+        model = bellman.BellmanModel(*(torch.as_tensor(x, device=device) for x in arrays))
+        started = time.time()
+        tables.append(bellman.state_action_value(model, 0.95, "stochastic", 100).cpu().numpy())
+        print(f"  stochastic MDP S={S}, A={A} on {device}: "
+              f"{bellman.state_action_value.iterations} updates in {time.time() - started!r} s")
+    expect_launches("stochastic value iteration", read_launches(), 0, 0)
+    same_q_table(f"stochastic value iteration S={S}", tables[0], tables[1], exact=False)
+    return paths
+
+
+def prior_case(dev):
+    """The DQN prior of MCTSWithPriorPolicyAgent/baseline.json (an MLP
+    [512, 512] over highway's flattened kinematics, Boltzmann at 0.5) with
+    weights drawn from a seeded generator: ``{device: (params, prior_fn)}``
+    for ``dev`` and the CPU."""
+    from rl_agents_torch.agents.dqn.agent import model_params
+    from rl_agents_torch.agents.tree_search.mcts_with_prior import dqn_prior
+    from rl_agents_torch.models.zoo import init_parameters, model_factory
+
+    obs_dim = 15 * 5
+    config = {"type": "MultiLayerPerceptron", "layers": list(PRIOR_LAYERS), "out": HW_ACTIONS}
+    params = model_params(init_parameters(model_factory(dict(config), (obs_dim,)),
+                                          torch.Generator().manual_seed(7)))
+    return {device: ({k: v.to(device) for k, v in params.items()},
+                     dqn_prior(model_factory(dict(config), (obs_dim,)).to(device),
+                               PRIOR_TEMPERATURE, obs_dim))
+            for device in (dev, CPU)}
+
+
+def check_mcts_prior_batch_path(dev) -> dict:
+    """``mcts_prior_plan_batch`` at the JAX bench's MCTS-highway size: 4096
+    trees, 23 episodes x horizon 8, highway at 15 vehicles on 4 lanes, the
+    [512, 512] DQN prior; 3 timed plans, one of 3 episodes profiled, the
+    first 64 trees held against the CPU plan under the same noise."""
+    from rl_agents_torch.agents.tree_search.mcts_with_prior import (
+        mcts_prior_plan,
+        mcts_prior_plan_batch,
+    )
+    from rl_agents_torch.utils.noise import gumbel
+
+    env, params, states = highway_case(dev)
+    priors = prior_case(dev)
+    obs0 = env.observe(params(CPU), states(CPU, TREES))
+
+    def run(device, n, noise, episodes=HW_MCTS["episodes"]):
+        prior_params, prior_fn = priors[device]
+        generator = None if noise is not None else torch.Generator(device=device).manual_seed(0)
+        return mcts_prior_plan_batch(env, params(device), states(device, n), obs0[:n].to(device),
+                                     generator, prior_params, prior_fn, noise=noise,
+                                     device=device, **dict(HW_MCTS, episodes=episodes))
+
+    E, H = HW_MCTS["episodes"], HW_MCTS["horizon"]
+    work = TREES * E * H
+    reset_launches()
+    times = timed_plans(lambda: run(dev, TREES, None))
+    launches = read_launches()
+    expect_launches(f"MCTS-with-prior batch path, {PLANS} plans", launches, 0, 0)
+    forwards = mcts_prior_plan.prior_forwards
+    ms = report_plans(f"mcts_prior_plan_batch on highway B={TREES} episodes={E} horizon={H}, "
+                      f"DQN prior {list(PRIOR_LAYERS)}", times, work, "env-steps")
+    expect(forwards == E * (H + 1), f"MCTS-with-prior plan: {forwards} prior forwards, "
+                                    f"expected one per expansion and rollout step")
+    print(f"  {forwards} prior forwards on [{TREES}, 75] in the last plan")
+    # reading the trace takes time in proportion to its kernels: a plan of a
+    # few episodes shows the same kernels at a fraction of that time
+    profiled = profile_plan(lambda: run(dev, TREES, None, PRIOR_PROFILED_EPISODES),
+                            host_events=False)
+    print(f"  the profiled plan ran {PRIOR_PROFILED_EPISODES} of the {E} episodes: "
+          f"{profiled['kernels'] / PRIOR_PROFILED_EPISODES!r} device kernels an episode")
+    noise = gumbel((2, E, H, TREES, HW_ACTIONS), torch.Generator().manual_seed(5), "cpu")
+    got = plan_fields(*run(dev, TREES, (noise[0], noise[1])))
+    expect(((got["lengths"] >= 1) & (got["lengths"] <= HORIZON)).all()
+           and (got["count"][:, 0] == E).all() and np.isfinite(got["value"]).all()
+           and np.isfinite(got["prior"]).all(), "MCTS-with-prior plan: invalid lengths, "
+                                               "root counts, values or priors")
+    started = time.time()
+    want = plan_fields(*run(CPU, CPU_SUBSET, (noise[0][..., :CPU_SUBSET, :],
+                                              noise[1][..., :CPU_SUBSET, :])))
+    print(f"  CPU plan of {CPU_SUBSET} trees: {time.time() - started!r} s")
+    same_on_cpu("mcts_prior_plan_batch", got, want, ("actions", "lengths", "count", "parent"),
+                ("value", "prior"))
+    return {"launches": launches, "ms": ms, "env_steps_per_s": work / (ms / 1e3),
+            "prior_forwards": forwards, "profiled_episodes": PRIOR_PROFILED_EPISODES,
+            "kernels": profiled["kernels"], "busy_share": profiled["busy_share"]}
+
+
+def check_mcts_prior_agent_paths(dev) -> dict:
+    """``baseline.json`` with its ``model_save`` pointing at a DQN checkpoint
+    written here with ``DQNAgent.save``, and ``vi_prior.json`` with the
+    ``simplify`` preprocessor, 5 steps each on the uncut highway env."""
+    from rl_agents_torch.factory import load_agent, load_agent_config, load_environment
+
+    highway = json.loads((CONFIGS / "HighwayEnv" / "env.json").read_text())
+    highway["max_episode_steps"] = HIGHWAY_AGENT_STEPS
+    agents = CONFIGS / "HighwayEnv" / "agents" / "MCTSWithPriorPolicyAgent"
+    paths = {}
+    env = load_environment(highway, device=dev)
+    config = load_agent_config(agents / "baseline.json")
+    prior_config = dict(config["prior_agent"])
+    artifact = REPO / "out" / "chip_smoke" / prior_config.pop("model_save")
+    prior = load_agent(prior_config, env, device=dev)
+    prior.save(artifact)
+    config["prior_agent"]["model_save"] = str(artifact)
+    agent = load_agent(config, env, device=dev)
+    for key, value in prior.train_state.params.items():
+        expect(torch.equal(agent.prior_agent.train_state.params[key], value),
+               f"baseline.json did not load {key} from {artifact.name}")
+    print(f"  baseline.json loads the [512, 512] prior saved at {artifact.relative_to(REPO)}; "
+          f"{agent.config['episodes']} episodes x horizon {agent.config['horizon']}")
+    paths["mcts_prior_dqn_agent"] = timed_agent_episode(
+        dev, "MCTSWithPriorPolicyAgent (baseline.json) on highway", env, agent)
+    env = load_environment(highway, device=dev)
+    agent = load_agent(agents / "vi_prior.json", env, device=dev)
+    expect(agent._tabular_prior and not agent._index_obs,
+           "vi_prior.json does not plan with the root prior of the TTC view")
+    paths["mcts_prior_vi_agent"] = timed_agent_episode(
+        dev, "MCTSWithPriorPolicyAgent (vi_prior.json, simplify) on highway", env, agent)
+    return paths
+
+
+def params_error(got: dict, want: dict) -> float:
+    """The largest difference of two parameter dicts, each leaf's relative to
+    its largest entry."""
+    return max(leaf_errors(got, want).values())
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Each leaf's largest difference relative to its largest entry, in float64."""
+    return {k: float((got[k].cpu().double() - want[k].cpu().double()).abs().max()
+                     / want[k].cpu().double().abs().max().clamp(min=1e-30)) for k in want}
+
+
+def float64_model(model):
+    """A copy of a zoo model whose Dense layers compute in float64."""
+    from rl_agents_torch.models.zoo import Dense
+
+    twin = copy.deepcopy(model)
+    for layer in twin.modules():
+        if isinstance(layer, Dense):
+            layer.dtype = torch.float64
+    return twin
+
+
+def ftq_epochs(agent, start: dict, target: dict, indices, runs: dict) -> dict:
+    """One FTQ epoch for each run ``{name: (device, dtype)}``, all from the
+    same start and target parameters, stepped side by side with the DQN
+    train step that ``make_ftq_epoch`` loops: step i fits the minibatch
+    ``indices[i]``. Returns per run its parameters after the steps in
+    ``FTQ_WITNESS`` and the double-DQN argmax of each step's next states
+    (``[steps, 64]``), taken before the step as the target takes it."""
+    from rl_agents_torch.agents.dqn.agent import TrainState, make_train_step, q_values
+    from rl_agents_torch.agents.dqn.replay import Batch
+    from rl_agents_torch.models.optimizers import loss_function_factory
+
+    gamma, double = agent.config["gamma"], agent.config["double"]
+    models = {torch.float32: agent.model, torch.float64: float64_model(agent.model)}
+    state, data, step_fn, model = {}, {}, {}, {}
+    for name, (device, dtype) in runs.items():
+        model[name] = copy.deepcopy(models[dtype]).to(device)
+        step_fn[name] = make_train_step(model[name], agent.optimizer, loss_function_factory("l2"),
+                                        gamma, double)[0]
+        params = {k: v.to(device, dtype) for k, v in start.items()}
+        state[name] = TrainState(params, {k: v.to(device, dtype) for k, v in target.items()},
+                                 agent.optimizer.init(list(params.values())))
+        data[name] = (Batch(*(x.to(device, dtype) if x.is_floating_point() else x.to(device)
+                              for x in agent.memory.data)), indices.to(device))
+    out = {name: {"params": {}, "argmax": []} for name in runs}
+    for i in range(indices.shape[0]):
+        for name in runs:
+            memory, taken = data[name]
+            batch = Batch(*(x[taken[i]] for x in memory))
+            with torch.no_grad():
+                best = q_values(model[name], state[name].params, batch.next_state).argmax(dim=1)
+            out[name]["argmax"].append(best)
+            state[name] = step_fn[name](state[name], batch)[0]
+            if i + 1 in FTQ_WITNESS:
+                out[name]["params"][i + 1] = {k: v.cpu() for k, v in state[name].params.items()}
+    for name in runs:
+        out[name]["argmax"] = torch.stack(out[name]["argmax"]).cpu()
+    return out
+
+
+def check_ftq(dev) -> dict:
+    """``HighwayEnv/agents/FTQAgent/baseline.json`` through
+    ``Evaluation(training=True).train()``: 71 episodes' worth of samples, one
+    batch of at most 1000 collected and fitted once (15 epochs x 400
+    regression steps); then one epoch under the same indices on the card and
+    on the CPU, from the fresh parameters an epoch starts from and from the
+    trained ones, in float32 and in float64. The float64 epochs and the
+    first step's float32 gradients are held within ``MODEL_TOLERANCE``. The
+    float32 epochs are measured against each other and against the float64
+    one, not held: their rounding differences grow over the steps, and where
+    a double-DQN argmax is nearly tied a float32 epoch can take the other
+    action and leave the float64 one. The argmax differences are counted
+    step by step."""
+    from rl_agents_torch.agents.dqn.agent import loss_and_gradients, model_params
+    from rl_agents_torch.agents.dqn.replay import Batch
+    from rl_agents_torch.factory import load_agent, load_environment
+    from rl_agents_torch.models.optimizers import loss_function_factory
+    from rl_agents_torch.models.zoo import init_parameters
+    from rl_agents_torch.trainer.evaluation import Evaluation
+
+    env = load_environment(CONFIGS / "HighwayEnv" / "env.json", device=dev)
+    agent = load_agent(CONFIGS / "HighwayEnv" / "agents" / "FTQAgent" / "baseline.json", env,
+                       device=dev)
+    epochs, steps = agent.value_iteration_epochs, agent.config["regression_epochs"]
+    expect(agent.batched and epochs == 15 and steps == 400 and FTQ_WITNESS[-1] == steps,
+           "FTQAgent/baseline.json: not 15 epochs x 400 regression steps")
+    update = agent.update
+    timing = {}
+
+    def timed_update():
+        torch.cuda.synchronize()
+        started = time.time()
+        update()
+        torch.cuda.synchronize()
+        timing["update_s"] = time.time() - started
+
+    agent.update = timed_update
+    evaluation = Evaluation(env, agent, directory=REPO / "out" / "chip_smoke" / "ftq",
+                            num_episodes=FTQ_EPISODES, training=True, sim_seed=0)
+    reset_launches()
+    started = time.time()
+    evaluation.train()
+    torch.cuda.synchronize()
+    seconds = time.time() - started
+    launches = read_launches()
+    expect_launches("FTQ path", launches, 0, 0)
+    samples = len(agent.memory)
+    expect(samples == FTQ_EPISODES * 14 and "update_s" in timing,
+           f"FTQ path: {samples} samples, expected one batch of {FTQ_EPISODES * 14}")
+    regression = epochs * steps
+    print(f"FTQAgent (baseline.json) on highway: one batch of {samples} samples, "
+          f"{epochs} epochs x {steps} regression steps; train() {seconds!r} s, update() "
+          f"{timing['update_s']!r} s, {timing['update_s'] / regression * 1e3!r} ms per "
+          f"regression step; launches {launches}")
+    expect((evaluation.run_directory / "checkpoint-final.data").is_file(),
+           "FTQ path: no memory saved beside checkpoint-final.tar")
+
+    indices = torch.randint(0, samples, (steps, 64), generator=torch.Generator().manual_seed(1))
+    trained = {k: v.cpu() for k, v in agent.train_state.params.items()}
+    fresh = model_params(init_parameters(copy.deepcopy(agent.model).cpu(),
+                                         torch.Generator().manual_seed(11)))
+    runs = {"card f32": (dev, torch.float32), "cpu f32": (CPU, torch.float32),
+            "card f64": (dev, torch.float64), "cpu f64": (CPU, torch.float64)}
+    pairs = (("card f32", "cpu f32"), ("cpu f32", "cpu f64"), ("card f32", "cpu f64"),
+             ("card f64", "cpu f64"))
+    result = {}
+    for label, start, target in (("fresh", fresh, trained), ("trained", trained,
+                                 {k: v.cpu() for k, v in agent.train_state.target_params.items()})):
+        started = time.time()
+        out = ftq_epochs(agent, start, target, indices, runs)
+        print(f"  one epoch from the {label} parameters ({steps} steps, the same indices; "
+              f"{time.time() - started!r} s for the {len(runs)} runs):")
+        errors = {}
+        for a, b in pairs:
+            errors[(a, b)] = [params_error(out[a]["params"][n], out[b]["params"][n])
+                              for n in FTQ_WITNESS]
+            flips = (out[a]["argmax"] != out[b]["argmax"]).sum(dim=1)
+            first = int(flips.nonzero()[0, 0]) + 1 if bool(flips.any()) else None
+            print(f"    {a} against {b}: after steps {list(FTQ_WITNESS)} "
+                  f"{[float(f'{e:.3g}') for e in errors[(a, b)]]} of a leaf's largest entry; "
+                  f"double-DQN argmax differs in {int(flips.sum())} of {flips.numel() * 64} "
+                  f"(first at step {first})")
+        worst = leaf_errors(out["card f32"]["params"][steps], out["cpu f32"]["params"][steps])
+        print(f"    card f32 against cpu f32 by leaf after {steps} steps: "
+              f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }")
+        result[label] = {f"{a} / {b}": e[-1] for (a, b), e in errors.items()}
+        if label == "fresh":
+            # the epoch the agent runs is the one stepped side by side here
+            params, _, _ = agent._epoch({k: v.to(dev) for k, v in start.items()},
+                                        {k: v.to(dev) for k, v in target.items()},
+                                        agent.optimizer.init([v.to(dev) for v in start.values()]),
+                                        agent.memory.data, samples, None, indices=indices)
+            same = all(torch.equal(params[k].cpu(), out["card f32"]["params"][steps][k])
+                       for k in params)
+            expect(same, "FTQ: the agent's epoch on the card differs from the one stepped here")
+        err = errors[("card f64", "cpu f64")][-1]
+        expect(err <= MODEL_TOLERANCE, f"FTQ epoch from the {label} parameters in float64: card "
+                                       f"against CPU {err!r} of a leaf's largest entry, above "
+                                       f"{MODEL_TOLERANCE}")
+        grads = []
+        for device in (dev, CPU):
+            memory = Batch(*(x.to(device) for x in agent.memory.data))
+            grads.append(loss_and_gradients(
+                agent.model.to(device), loss_function_factory("l2"),
+                {k: v.to(device) for k, v in start.items()},
+                {k: v.to(device) for k, v in target.items()},
+                Batch(*(x[indices[0].to(device)] for x in memory)), agent.config["gamma"],
+                agent.config["double"])[1])
+        agent.model.to(dev)
+        names = list(start)
+        err = params_error(dict(zip(names, grads[0])), dict(zip(names, grads[1])))
+        expect(err <= MODEL_TOLERANCE, f"FTQ regression step from the {label} parameters: "
+                                       f"gradients on the card against the CPU's {err!r} of the "
+                                       f"leaf's largest entry, above {MODEL_TOLERANCE}")
+        print(f"    the first step's float32 gradients on the card within {err!r} of the CPU's")
+        result[label]["first step gradients"] = err
+    return {"launches": launches, "ms_per_regression_step": timing["update_s"] / regression * 1e3,
+            "update_s": timing["update_s"], "epoch_errors": result}
+
+
+def bftq_bench_case(device):
+    """``bench_bftq_fit``'s inputs (bench.py:750-819): S = 4096 transitions of
+    75 features, 3 actions, the BudgetedMLP [64, 64] with weights from a
+    seed, on ``device``."""
+    from rl_agents_torch.agents.budgeted_ftq.bftq import BFTQBatch
+    from rl_agents_torch.agents.budgeted_ftq.models import BudgetedMLP
+    from rl_agents_torch.agents.dqn.agent import model_params
+    from rl_agents_torch.models.zoo import init_parameters
+
+    S, D, A = BFTQ_STATES, 75, 3
+    rng = np.random.default_rng(0)
+    arrays = dict(state=rng.normal(size=(S, D)).astype(np.float32),
+                  action=rng.integers(0, A, S).astype(np.int64),
+                  reward=rng.uniform(size=S).astype(np.float32),
+                  next_state=rng.normal(size=(S, D)).astype(np.float32),
+                  terminal=rng.uniform(size=S) < 0.05,
+                  cost=(rng.uniform(size=S) < 0.1).astype(np.float32),
+                  beta=rng.uniform(size=S).astype(np.float32))
+    batch = BFTQBatch(**{k: torch.as_tensor(v, device=device) for k, v in arrays.items()})
+    network = BudgetedMLP(D, A, layers=(64, 64)).to(device)
+    params = model_params(init_parameters(BudgetedMLP(D, A, layers=(64, 64)),
+                                          torch.Generator().manual_seed(3)))
+    return batch, network, {k: v.to(device) for k, v in params.items()}
+
+
+def check_bftq(dev) -> dict:
+    """BFTQ at ``bench_bftq_fit``'s sizes (the targets on the card against
+    the CPU's, one target computation plus fit epoch timed), then
+    ``TwoWayEnv/agents/BFTQAgent/baseline.json`` at its own width through
+    ``Evaluation.train()`` for one batch, cut to 1 epoch x a few hundred
+    regression steps, its target computation profiled."""
+    from rl_agents_torch.agents.budgeted_ftq import bftq as bq
+    from rl_agents_torch.agents.budgeted_ftq.greedy_policy import batch_mixtures, pareto_frontier
+    from rl_agents_torch.factory import load_agent, load_agent_config, load_environment
+    from rl_agents_torch.models.optimizers import loss_function_factory, optimizer_factory
+    from rl_agents_torch.trainer.evaluation import Evaluation
+
+    betas = {d: torch.as_tensor(bq.parse_betas(f"np.linspace(0, 1, {BFTQ_BUDGETS})"), device=d)
+             for d in (dev, CPU)}
+    results = {}
+    reset_launches()
+    for device in (dev, CPU):
+        batch, network, params = bftq_bench_case(device)
+        x = torch.cat([batch.next_state.repeat_interleave(BFTQ_BUDGETS, dim=0),
+                       betas[device].repeat(BFTQ_STATES)[:, None]], dim=1)
+        with torch.no_grad():
+            q = torch.func.functional_call(network, params, (x,))
+        mix = batch_mixtures(q.reshape(BFTQ_STATES, BFTQ_BUDGETS, -1), betas[device], batch.beta)
+        targets = bq.compute_targets(network, params, batch, betas[device], True, 0.9, 0.9)
+        results[device] = (mix, targets, q)
+    (mix_d, targets_d, q_d), (mix_c, targets_c, q_c) = results[dev], results[CPU]
+    q_err = float((q_d.cpu() - q_c).abs().max())
+    for name in ("action_inf", "action_sup", "budget_inf", "budget_sup"):
+        expect(torch.equal(getattr(mix_d, name).cpu(), getattr(mix_c, name)),
+               f"BFTQ mixtures: {name} on the card differs from the CPU's (Q within {q_err!r})")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(targets_d, targets_c))
+    expect(err <= BFTQ_TOLERANCE, f"BFTQ targets: card against CPU {err!r}")
+    print(f"BFTQ targets at S={BFTQ_STATES}, D=75, A=3, {BFTQ_BUDGETS} budgets (P = "
+          f"{BFTQ_BUDGETS * 3} hull points a state, {pareto_frontier.chunks} chunk(s)): mixture "
+          f"indices equal to the CPU's, targets within {err!r}, Q within {q_err!r}")
+
+    batch, network, params = bftq_bench_case(dev)
+    optimizer = optimizer_factory("ADAM", lr=1e-3)
+    loss = bq.make_loss(network, 3, loss_function_factory("l2"), loss_function_factory("l2"),
+                        [1.0, 1.0])
+    fit = bq.make_fit(loss, optimizer, BFTQ_REGRESSION)
+    sb = torch.cat([batch.state, batch.beta[:, None]], dim=1)
+    opt_state = optimizer.init(list(params.values()))
+
+    def epoch():
+        target_r, target_c = bq.compute_targets(network, params, batch, betas[dev], True, 0.9,
+                                                0.9)
+        return fit(params, opt_state, sb, batch.action, target_r, target_c)
+
+    epoch()  # warm-up
+    times = timed_plans(epoch)
+    target_ms = cuda_ms(lambda: bq.compute_targets(network, params, batch, betas[dev], True,
+                                                   0.9, 0.9), 3)
+    ms = statistics.median(times)
+    launches = read_launches()
+    expect_launches("BFTQ fit path", launches, 0, 0)
+    print(f"  target computation + fit epoch ({BFTQ_REGRESSION} ADAM steps): median {ms!r} ms "
+          f"over {[round(t, 3) for t in times]}, {BFTQ_STATES / (ms / 1e3)!r} states/s; the "
+          f"targets alone {target_ms!r} ms")
+
+    env_config = load_agent_config(CONFIGS / "TwoWayEnv" / "env.json")
+    env = load_environment(env_config, device=dev)
+    config = load_agent_config(CONFIGS / "TwoWayEnv" / "agents" / "BFTQAgent" / "baseline.json")
+    config.update(epochs=BFTQ_AGENT_EPOCHS, regression_epochs=BFTQ_AGENT_REGRESSION)
+    agent = load_agent(config, env, device=dev)
+    calls = []
+    update = agent.update
+
+    def recorded_update():  # train() resets the fitter, then fits through update()
+        compute = agent.bftq.compute_targets
+
+        def recorded(batch, bootstrap):  # run() takes each epoch's targets through this
+            torch.cuda.synchronize()
+            started = time.time()
+            targets = compute(batch, bootstrap)
+            torch.cuda.synchronize()
+            calls.append((batch.state.shape[0], bootstrap, time.time() - started))
+            return targets
+
+        agent.bftq.compute_targets = recorded
+        update()
+        del agent.bftq.compute_targets
+
+    agent.update = recorded_update
+    evaluation = Evaluation(env, agent, directory=REPO / "out" / "chip_smoke" / "bftq",
+                            num_episodes=BFTQ_AGENT_EPISODES, training=True, sim_seed=0)
+    reset_launches()
+    started = time.time()
+    evaluation.train()
+    torch.cuda.synchronize()
+    seconds = time.time() - started
+    agent_launches = read_launches()
+    expect_launches("BFTQ agent path", agent_launches, 0, 0)
+    bftq = agent.bftq
+    width = bftq.betas_for_discretisation.shape[0] * env.action_space.n
+    samples = bftq.memory_size
+    expect([c[:2] for c in calls] == [(samples, e > 0) for e in range(BFTQ_AGENT_EPOCHS)],
+           f"BFTQ agent path: target computations {calls}, expected one an epoch over the "
+           f"{samples} transitions, bootstrapped from the second")
+    print(f"BFTQAgent (TwoWayEnv baseline.json, cut to {BFTQ_AGENT_EPOCHS} epochs x "
+          f"{BFTQ_AGENT_REGRESSION} regression steps from 15 x 5000, {BFTQ_AGENT_EPISODES} "
+          f"episodes) through train(): {samples} transitions ({BFTQ_AGENT_EPISODES * 14} samples "
+          f"x {len(bftq.betas_for_duplication)} duplicated budgets), {width} hull points a "
+          f"state, {seconds!r} s; the bootstrapped epoch's targets {calls[-1][2]!r} s "
+          f"({pareto_frontier.chunks} hull blocks)")
+    agent_batch = bftq._zip_batch()
+    subset = bq.BFTQBatch(*(x[:BFTQ_PROFILED] for x in agent_batch))
+    profiled_targets = []
+    profiled = profile_plan(lambda: profiled_targets.append(bftq.compute_targets(subset, True)),
+                            host_events=False)
+    print(f"  profiled target computation of {BFTQ_PROFILED} transitions at P = {width}: "
+          f"{pareto_frontier.chunks} hull blocks, {profiled['wall_ms']!r} ms")
+    # the first transitions' mixtures and targets against the CPU's; the
+    # CPU's hull takes most of a second a state at P = 500
+    held = bq.BFTQBatch(*(x[:BFTQ_HELD] for x in subset))
+
+    def mixture_and_targets(network, params, batch, device):
+        disc = bftq.betas_for_discretisation.to(device)
+        mix = bq.next_mixtures(network, params, batch, disc)
+        return mix, bq.mixture_targets(mix, batch, bftq.config["gamma"], bftq.config["gamma_c"],
+                                       bftq.config.get("clamp_qc"))
+
+    started = time.time()
+    cpu_params = {k: v.cpu() for k, v in bftq.params.items()}
+    mixes, targets = {}, {}
+    mixes[CPU], targets[CPU] = mixture_and_targets(copy.deepcopy(bftq.network).cpu(), cpu_params,
+                                                   bq.BFTQBatch(*(x.cpu() for x in held)), CPU)
+    cpu_s = time.time() - started
+    mixes[dev], targets[dev] = mixture_and_targets(bftq.network, bftq.params, held, dev)
+    for name in ("action_inf", "action_sup", "budget_inf", "budget_sup"):
+        expect(torch.equal(getattr(mixes[dev], name).cpu(), getattr(mixes[CPU], name)),
+               f"BFTQ mixtures at P = {width}: {name} on the card differs from the CPU's")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(targets[dev], targets[CPU]))
+    profiled_err = max(float((a[:BFTQ_HELD].cpu() - b).abs().max())
+                       for a, b in zip(profiled_targets[0], targets[CPU]))
+    expect(max(err, profiled_err) <= BFTQ_TOLERANCE,
+           f"BFTQ targets at P = {width}: card against CPU {max(err, profiled_err)!r}")
+    print(f"  the first {BFTQ_HELD} of them against the CPU ({cpu_s!r} s there): mixture indices "
+          f"equal, targets within {profiled_err!r} (the profiled run) and {err!r}")
+    launches = {k: v + agent_launches[k] for k, v in launches.items()}
+    return {"launches": launches, "epoch_ms": ms, "states_per_s": BFTQ_STATES / (ms / 1e3),
+            "targets_ms": target_ms, "agent_s": seconds, "agent_bootstrapped_s": calls[-1][2],
+            "agent_target_busy_share": profiled["busy_share"]}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -1705,13 +2378,28 @@ def main():
     for path, result in learner.items():
         paths[path] = result.pop("launches")
     print(json.dumps({"dqn_learner": learner}))
+    slice7 = {}
+    phase("19. dynamic programming")
+    for path, result in check_dynamic_programming(dev).items():
+        slice7[path] = result
+    phase("20. MCTS-with-prior batch path")
+    slice7["mcts_prior_batch_plans"] = check_mcts_prior_batch_path(dev)
+    phase("21. MCTS-with-prior agent paths")
+    slice7.update(check_mcts_prior_agent_paths(dev))
+    phase("22. FTQ")
+    slice7["ftq_highway_agent"] = check_ftq(dev)
+    phase("23. BFTQ")
+    slice7["bftq"] = check_bftq(dev)
+    for path, result in slice7.items():
+        paths[path] = result.pop("launches")
+    print(json.dumps({"slice7": slice7}))
     for kernel in kernels:
         kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         if kernel["launches"] == 0:
             raise AssertionError(f"no path launched {kernel['name']}")
 
-    phase("19. summary")
+    phase("24. summary")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

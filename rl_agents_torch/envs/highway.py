@@ -36,7 +36,7 @@ import torch
 from rl_agents_torch.envs.base import (Box, Discrete, EnvHandle, EnvSpec, FunctionalEnv,
                                        StepOut, TupleSpace)
 from rl_agents_torch.utils.device import resolve_device
-from rl_agents_torch.utils.math import fma, fnma
+from rl_agents_torch.utils.math import fma, fnma, recip
 
 # meta-actions (highway-env order)
 LANE_LEFT, IDLE, LANE_RIGHT, FASTER, SLOWER = 0, 1, 2, 3, 4
@@ -46,13 +46,6 @@ VEHICLE_LENGTH = 5.0
 MAX_SPEED = 40.0
 MIN_SPEED = 0.0
 _TWO_PI = 2 * math.pi
-
-
-def _recip(c) -> float:
-    """The float32 reciprocal of the float32 constant ``c``: XLA turns a
-    division by a constant of the program into a multiplication by it, so
-    the JAX package's ``x / c`` is ``x * _recip(c)`` here."""
-    return float(np.float32(1) / np.float32(c))
 
 
 class HighwayParams(NamedTuple):
@@ -439,7 +432,7 @@ class HighwayEnv(FunctionalEnv):
 
             ego_acc = scaled(act[:, 0], a_lo, a_hi)[:, None]
             steering = scaled(act[:, 1], s_lo, s_hi)
-            lane_rate_ego = state.speed[:, 0] * torch.sin(steering) * _recip(LANE_WIDTH)
+            lane_rate_ego = state.speed[:, 0] * torch.sin(steering) * recip(LANE_WIDTH)
             # traffic keeps MOBIL/IDM; the ego's target lane tracks its position
             target_lane, idm_acc = self._mobil_target_lanes(params, state, state.target_lane,
                                                             traffic_speed)
@@ -518,19 +511,19 @@ class HighwayEnv(FunctionalEnv):
             scaled_speed = torch.clamp((speed[:, 0] - lo) / (hi - lo), 0.0, 1.0)
             # XLA folds the constant 1 / (L - 1) into the lane weight
             raw = self._reward_sum(cr * ego_crash.to(torch.float32), hs, scaled_speed,
-                                   rl * _recip(max(L - 1, 1)), lane[:, 0])
+                                   rl * recip(max(L - 1, 1)), lane[:, 0])
         else:
             # the mean of the per-ego rewards (highway-env multi-agent)
             scaled_speed = torch.clamp((speed[:, :N] - lo) / (hi - lo), 0.0, 1.0)
             raw = self._reward_sum(cr * per_ego_crash.to(torch.float32), hs, scaled_speed,
-                                   rl * _recip(max(L - 1, 1)), lane[:, :N]).sum(dim=1)
+                                   rl * recip(max(L - 1, 1)), lane[:, :N]).sum(dim=1)
         cr1, hs1, rl1 = (_row(p, 1) for p in (params.collision_reward,
                                               params.high_speed_reward,
                                               params.right_lane_reward))
         if N == 1:
             centered = raw - cr1
         else:  # the mean's ``sum / N`` and ``- collision_reward`` fuse into one FMA
-            centered = fma(raw, torch.tensor(_recip(N), device=device), -cr1)
+            centered = fma(raw, torch.tensor(recip(N), device=device), -cr1)
         reward = centered / (hs1 + rl1 - cr1)
         reward = torch.where(frozen, 0.0, torch.clamp(reward, 0.0, 1.0))
 
@@ -574,7 +567,7 @@ class HighwayEnv(FunctionalEnv):
         # both sums of products are fused multiply-adds in the JAX package
         dist = torch.sqrt(fma(dx, dx, dy * dy))
         angle = torch.remainder(torch.atan2(dy, dx), _TWO_PI)
-        sector = torch.remainder(torch.floor(angle * _recip(_TWO_PI / C)).to(torch.int64), C)
+        sector = torch.remainder(torch.floor(angle * recip(_TWO_PI / C)).to(torch.int64), C)
         valid = state.alive & (torch.arange(V, device=device) != ego) & (dist <= R)
         d = torch.where(valid, dist, torch.inf)
         d_min = torch.full((B, C), torch.inf, device=device).scatter_reduce(
@@ -588,8 +581,8 @@ class HighwayEnv(FunctionalEnv):
         radial = fma(vx, dx, vy * dy) / torch.clamp(dist, min=1e-3)
         closing = torch.zeros((B, C), device=device).scatter_add(
             1, sector, torch.where(nearest, -radial, 0.0)) / count
-        return torch.stack([torch.where(torch.isfinite(d_min), d_min * _recip(R), 1.0),
-                            torch.clamp(closing * _recip(MAX_SPEED), -1.0, 1.0)], dim=2)
+        return torch.stack([torch.where(torch.isfinite(d_min), d_min * recip(R), 1.0),
+                            torch.clamp(closing * recip(MAX_SPEED), -1.0, 1.0)], dim=2)
 
     def _directions(self, device):
         """Per-vehicle travel direction along x (+1), or None when uniform.
@@ -639,7 +632,7 @@ class HighwayEnv(FunctionalEnv):
         rows = torch.stack(cols, dim=2).gather(1, order[:, :, None].expand(-1, -1, len(cols)))
         presence = rows[:, :, 0].clone()
         # the ego row carries absolute features, like highway-env
-        ego_x = state.x[:, ego] * _recip(1000.0)
+        ego_x = state.x[:, ego] * recip(1000.0)
         rows[:, 0] = 0.0
         rows[:, 0, 0] = 1.0
         rows[:, 0, 1] = ego_x
@@ -694,8 +687,8 @@ class HighwayEnv(FunctionalEnv):
         B, V = dx.shape
         device = dx.device
         scale = _vec(params.obs_scale)
-        ix = torch.floor(dx * _recip(sx) + Wc / 2.0).to(torch.int64)
-        iy = torch.floor(dy * _recip(sy) + Hc / 2.0).to(torch.int64)
+        ix = torch.floor(dx * recip(sx) + Wc / 2.0).to(torch.int64)
+        iy = torch.floor(dy * recip(sy) + Hc / 2.0).to(torch.int64)
         inside = state.alive & (ix >= 0) & (ix < Wc) & (iy >= 0) & (iy < Hc)
         feats = [torch.ones_like(dx),
                  torch.clamp(dx / scale[:, 0:1], -1, 1), torch.clamp(dy / scale[:, 1:2], -1, 1),
@@ -851,7 +844,7 @@ class IntersectionEnv(HighwayEnv):
         speed_level = torch.clamp(state.speed_level + (acts == 2).to(torch.int64)
                                   - (acts == 0).to(torch.int64), 0, 2)
         # ``target * 10.0 / 25.0``: XLA folds both constants into one factor
-        factor = float(np.float32(10.0) * np.float32(_recip(25.0)))
+        factor = float(np.float32(10.0) * np.float32(recip(25.0)))
         level_speed = _pick(params.target_speeds, speed_level)
         idx = torch.arange(V, device=device)
         is_ego = idx == 0 if N == 1 else idx < N
@@ -875,7 +868,7 @@ class IntersectionEnv(HighwayEnv):
             ego_crash = (near[:, 0] & crossing_near) | state.crashed
             any_crash = ego_crash
             arrived = x[:, 0] > 25.0
-            scaled_speed = torch.clamp(speed[:, 0] * _recip(10.0), 0.0, 1.0)
+            scaled_speed = torch.clamp(speed[:, 0] * recip(10.0), 0.0, 1.0)
             reward = torch.where(ego_crash, 0.0, torch.where(arrived, 1.0, 0.5 * scaled_speed))
         else:
             ego_x, ego_v = x[:, :N], speed[:, :N]
@@ -886,11 +879,11 @@ class IntersectionEnv(HighwayEnv):
                 | state.crashed[:, None]
             any_crash = per_ego_crash.any(dim=1)
             arrived = (ego_x > 25.0).all(dim=1)
-            scaled_speed = torch.clamp(ego_v * _recip(10.0), 0.0, 1.0)
+            scaled_speed = torch.clamp(ego_v * recip(10.0), 0.0, 1.0)
             per_reward = torch.where(per_ego_crash, 0.0,
                                      torch.where(ego_x > 25.0, 1.0, 0.5 * scaled_speed))
             ego_crash = any_crash
-            reward = per_reward.sum(dim=1) * _recip(N)
+            reward = per_reward.sum(dim=1) * recip(N)
 
         keep = frozen[:, None]
         new_state = HighwayState(
@@ -947,8 +940,8 @@ class IntersectionEnv(HighwayEnv):
         # the single-ego row layout: [1, x/100, 0, speed/20, 0] (+ cos_h 1)
         rows[:, ego] = 0.0
         rows[:, ego, 0] = 1.0
-        rows[:, ego, 1] = state.x[:, ego] * _recip(100.0)
-        rows[:, ego, 3] = state.speed[:, ego] * _recip(20.0)
+        rows[:, ego, 1] = state.x[:, ego] * recip(100.0)
+        rows[:, ego, 3] = state.speed[:, ego] * recip(20.0)
         if self.obs_features >= 7:
             rows[:, ego, 5] = 1.0
         if N > 1 and ego != 0:
@@ -1099,8 +1092,8 @@ class TwoWayEnv(HighwayEnv):
         presence = rows[:, :, 0].clone()
         rows[:, 0] = 0.0
         rows[:, 0, 0] = 1.0
-        rows[:, 0, 1] = state.x[:, ego] * _recip(1000.0)
-        rows[:, 0, 3] = state.speed[:, ego] * _recip(MAX_SPEED)
+        rows[:, 0, 1] = state.x[:, ego] * recip(1000.0)
+        rows[:, 0, 3] = state.speed[:, ego] * recip(MAX_SPEED)
         if self.obs_features >= 7:
             rows[:, 0, 5] = 1.0
         rows = rows * presence[:, :, None]

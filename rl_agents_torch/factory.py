@@ -21,18 +21,28 @@ logger = logging.getLogger(__name__)
 
 # name -> "module:Class", imported on first use
 AGENT_REGISTRY: Dict[str, str] = {
+    "BFTQAgent": "rl_agents_torch.agents.budgeted_ftq.agent:BFTQAgent",
     "DQNAgent": "rl_agents_torch.agents.dqn.agent:DQNAgent",
     "DeterministicPlannerAgent":
         "rl_agents_torch.agents.tree_search.deterministic:DeterministicPlannerAgent",
     "DiscreteRobustPlannerAgent": "rl_agents_torch.agents.robust.robust:DiscreteRobustPlannerAgent",
+    "FTQAgent": "rl_agents_torch.agents.fitted_q:FTQAgent",
     "GraphBasedPlannerAgent": "rl_agents_torch.agents.tree_search.graph_based:GraphBasedPlannerAgent",
     "IntervalRobustPlannerAgent": "rl_agents_torch.agents.robust.robust:IntervalRobustPlannerAgent",
     "MCTSAgent": "rl_agents_torch.agents.tree_search.mcts:MCTSAgent",
+    "MCTSWithPriorPolicyAgent":
+        "rl_agents_torch.agents.tree_search.mcts_with_prior:MCTSWithPriorPolicyAgent",
     "MDPGapEAgent": "rl_agents_torch.agents.tree_search.mdp_gape:MDPGapEAgent",
     "OLOPAgent": "rl_agents_torch.agents.tree_search.olop:OLOPAgent",
+    "OpenLoopAgent": "rl_agents_torch.agents.simple:OpenLoopAgent",
+    "RandomUniformAgent": "rl_agents_torch.agents.simple:RandomUniformAgent",
+    "RobustValueIterationAgent":
+        "rl_agents_torch.agents.dynamic_programming.robust_value_iteration:RobustValueIterationAgent",
     "StateAwarePlannerAgent": "rl_agents_torch.agents.tree_search.state_aware:StateAwarePlannerAgent",
     "StochasticGraphBasedPlannerAgent":
         "rl_agents_torch.agents.tree_search.graph_based_stochastic:StochasticGraphBasedPlannerAgent",
+    "ValueIterationAgent":
+        "rl_agents_torch.agents.dynamic_programming.value_iteration:ValueIterationAgent",
 }
 
 ENV_REGISTRY: Dict[str, str] = {

@@ -5,11 +5,13 @@ rl_agents/trainer/evaluation.py:23-387): train/test episode loops (plan ->
 env.step -> ``record``), the seeding protocol (sim_seed + episode), run
 metadata, per-episode metrics, the checkpoint cadence (cubic schedule and the
 best-EMA window, ``saved_models/latest.tar``, ``checkpoint-final`` on close),
-model recovery, and whole-run fused training for agents with
-``"fused": true``. Each finished episode is appended to ``episodes.jsonl`` in
-the run directory and, when tensorboardX is installed, written as scalars.
+model recovery, whole-run fused training for agents with ``"fused": true``,
+and the batched episodes of the fitted agents (``agent.batched``: FTQ, BFTQ),
+which alternate sample collection and ``update()``. Each finished episode is
+appended to ``episodes.jsonl`` in the run directory and, when tensorboardX
+is installed, written as scalars.
 
-Not ported yet: batched episodes, viewers and recorders.
+Not ported yet: viewers and recorders.
 """
 from __future__ import annotations
 
@@ -19,15 +21,25 @@ import logging
 import os
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
 from rl_agents_torch.configuration import serialize
+from rl_agents_torch.utils.math import near_split
 
 logger = logging.getLogger(__name__)
 
 _LOG_FORMAT = "[%(levelname)s] %(asctime)s %(name)s: %(message)s"
+
+
+class Transition(NamedTuple):
+    state: object
+    action: object
+    reward: object
+    next_state: object
+    terminal: object
+    info: dict
 
 
 def capped_cubic_video_schedule(episode: int) -> bool:
@@ -104,6 +116,8 @@ class Evaluation:
         if self.agent.config.get("fused") and hasattr(self.agent, "train_fused") \
                 and hasattr(self.env, "functional"):
             self.run_fused_training()
+        elif getattr(self.agent, "batched", False):
+            self.run_batched_episodes()
         else:
             self.run_episodes()
         self.close()
@@ -133,6 +147,62 @@ class Evaluation:
                 rewards.append(reward)
             self.after_all_episodes(self.episode, rewards, time.time() - start_time)
             self.after_some_episodes(self.episode, rewards)
+
+    def run_batched_episodes(self):
+        """Alternate sample collection and model fitting (reference:
+        evaluation.py:196-246): ``num_episodes`` episodes of 14 steps are
+        split into batches of at most the agent's ``batch_size`` samples; each
+        batch is collected by the training agent, recorded, and fitted by
+        ``agent.update()``."""
+        episode = 0
+        episode_duration = 14
+        batch_sizes = near_split(self.num_episodes * episode_duration,
+                                 size_bins=self.agent.config["batch_size"])
+        self.agent.reset()
+        for batch, batch_size in enumerate(batch_sizes):
+            logger.info("[BATCH=%d/%d] collecting %d samples", batch + 1, len(batch_sizes),
+                        batch_size)
+            collect_start = time.time()
+            trajectories = self.collect_samples_host(batch_size, seed=batch, batch=batch)
+            # each finished episode is given its share of the batch's time
+            collect_duration = time.time() - collect_start
+            total_steps = sum(len(t) for t in trajectories) or 1
+            for trajectory in trajectories:
+                if trajectory and trajectory[-1].terminal:
+                    self.after_all_episodes(
+                        episode, [t.reward for t in trajectory],
+                        duration=collect_duration * len(trajectory) / total_steps)
+                episode += 1
+                for t in trajectory:
+                    self.agent.record(*t)
+            self.agent.update()
+
+    def collect_samples_host(self, count: int, seed: int, batch: int):
+        """``count`` transitions collected by the training agent, as a list
+        of trajectories; pure exploration on batch 0, the env and the agent
+        seeded with the batch number (reference: evaluation.py:248-290)."""
+        env, agent = self.env, self.agent
+        if batch == 0 and hasattr(agent, "explore"):
+            agent.explore(True)
+        agent.seed(seed)
+        state, _ = env.reset(seed=seed)
+        episodes, trajectory = [], []
+        for _ in range(count):
+            action = agent.act(state)
+            next_state, reward, done, truncated, info = env.step(action)
+            terminal = bool(done) or bool(truncated)
+            trajectory.append(Transition(state, action, reward, next_state, terminal, info))
+            if terminal:
+                state, _ = env.reset()
+                episodes.append(trajectory)
+                trajectory = []
+            else:
+                state = next_state
+        if trajectory:
+            episodes.append(trajectory)
+        if batch == 0 and hasattr(agent, "explore"):
+            agent.explore(False)
+        return episodes
 
     def step(self):
         """plan -> env.step -> record (reference: evaluation.py:163-194)."""

@@ -73,6 +73,13 @@ def fma(a, b, c) -> torch.Tensor:
     return torch.addcmul(c, a.double(), b).to(torch.float32)
 
 
+def recip(c) -> float:
+    """The float32 reciprocal of the float32 constant ``c``: XLA turns a
+    division by a constant of the program into a multiplication by it, so
+    the JAX package's ``x / c`` is ``x * recip(c)`` here."""
+    return float(np.float32(1) / np.float32(c))
+
+
 def fnma(a, b, c) -> torch.Tensor:
     """``c - a * b`` on float32 tensors, rounded once: ``fma(-a, b, c)``
     without the negation's kernel."""

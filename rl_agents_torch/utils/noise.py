@@ -81,3 +81,54 @@ def threefry_gumbel(key, size: int) -> np.ndarray:
 
 # the key that the JAX package's deterministic planners step an env with
 NULL_KEY = (0, 0)
+
+
+def prng_key(seed: int) -> tuple:
+    """``jax.random.PRNGKey(seed)`` as two uint32 (threefry): a 32-bit seed
+    goes to the low word."""
+    return (0, int(seed) & 0xFFFFFFFF)
+
+
+def _threefry_counters(key, size: int):
+    """The two words of threefry-2x32 under ``key`` at the counters
+    ``(0, i)`` for i < size, as JAX's partitionable threefry takes them."""
+    with np.errstate(over="ignore"):
+        return _threefry2x32(key, np.zeros(size, np.uint32), np.arange(size, dtype=np.uint32))
+
+
+def threefry_split(key, num: int = 2) -> list:
+    """``jax.random.split(key, num)`` for a raw threefry key."""
+    b0, b1 = _threefry_counters(key, num)
+    return [(int(x), int(y)) for x, y in zip(b0, b1)]
+
+
+def threefry_bits(key, size: int) -> np.ndarray:
+    """``jax.random.bits(key, (size,), uint32)``: element i is the xor of the
+    two words at the counter ``(0, i)``."""
+    b0, b1 = _threefry_counters(key, size)
+    return b0 ^ b1
+
+
+def threefry_randint(key, maxval: int, minval: int = 0) -> int:
+    """``jax.random.randint(key, (), minval, maxval)`` on the host (int32):
+    two words of bits from the key's two halves, each reduced modulo the span
+    and combined as JAX does to keep the draw nearly uniform."""
+    k1, k2 = threefry_split(key, 2)
+    higher, lower = int(threefry_bits(k1, 1)[0]), int(threefry_bits(k2, 1)[0])
+    span = max(int(maxval) - int(minval), 1)
+    multiplier = (2 ** 16) % span
+    multiplier = (multiplier * multiplier) % 2 ** 32 % span  # uint32 arithmetic wraps
+    offset = ((higher % span) * multiplier % 2 ** 32 + lower % span) % 2 ** 32 % span
+    return int(minval) + offset
+
+
+def threefry_uniform(key, shape, low, high) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32, low, high)`` on the host."""
+    size = int(np.prod(shape, dtype=np.int64))
+    bits = threefry_bits(key, size)
+    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    low = np.broadcast_to(np.asarray(low, np.float32), shape).reshape(-1)
+    high = np.broadcast_to(np.asarray(high, np.float32), shape).reshape(-1)
+    # floats * (high - low) + low is one fused multiply-add in XLA
+    scaled = (floats.astype(np.float64) * (high - low) + low).astype(np.float32)
+    return np.maximum(low, scaled).reshape(shape)

@@ -70,8 +70,10 @@ def test_agent_class_resolves_reference_paths_and_refuses_the_rest():
     dqn = agent_class("<class 'rl_agents.agents.deep_q_network.pytorch.DQNAgent'>")
     assert dqn is agent_class("DQNAgent")
     assert dqn.__module__ == "rl_agents_torch.agents.dqn.agent"
+    ftq = agent_class("<class 'rl_agents.agents.fitted_q.pytorch.FTQAgent'>")
+    assert ftq.__module__ == "rl_agents_torch.agents.fitted_q"
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        agent_class("FTQAgent")
+        agent_class("CEMAgent")
 
 
 @pytest.mark.parametrize("path,module", [

@@ -156,6 +156,20 @@ def test_entry_points_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_agent({"__class__": "DQNAgent"}, env)
+    mdp = load_environment({"id": "finite-mdp"}, device="cpu")
+    for config in ({"__class__": "ValueIterationAgent"},
+                   {"__class__": "RobustValueIterationAgent", "models": [
+                       {"mode": "deterministic", "transition": [[0]], "reward": [[1.0]]}]},
+                   {"__class__": "RandomUniformAgent"}, {"__class__": "OpenLoopAgent"},
+                   {"__class__": "MCTSWithPriorPolicyAgent", "budget": 10},
+                   {"__class__": "FTQAgent"}, {"__class__": "BFTQAgent"}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_agent(config, mdp if "Value" in config["__class__"] else env)
+    from rl_agents_torch.agents.tree_search.mcts_with_prior import mcts_prior_plan, root_prior
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mcts_prior_plan(CartPoleEnv(), env.params, env.state, obs, generator, probs, root_prior,
+                        **mcts_kw)
     model = MultiLayerPerceptron(4, (8,), out=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_actor_learner(CartPoleEnv(), model, optimizer_factory("ADAM"))
@@ -169,7 +183,7 @@ def test_agents_not_yet_ported_name_what_is_missing():
     env = load_environment({"id": "cartpole"}, device="cpu")
     with pytest.raises(NotImplementedError, match="mcts_closed_loop"):
         load_agent({"__class__": "MCTSAgent", "closed_loop": True}, env, device="cpu")
-    for name in ("BRUEAgent", "ValueIterationAgent", "FTQAgent", "RobustEPCAgent"):
+    for name in ("BRUEAgent", "CEMAgent", "LinearFeedbackAgent", "RobustEPCAgent"):
         with pytest.raises(NotImplementedError, match=name):
             load_agent({"__class__": name}, env, device="cpu")
     for env_id in ("gridenv-v0", "sailing-8-v0", "parking-v0"):
