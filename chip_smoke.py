@@ -29,7 +29,7 @@ non-zero without its final line:
    trees, 23 x 8, gamma 0.95, temperature 40, its first 64 trees checked
    against the CPU plan under the same noise; it launches no kernel;
 7. the MCTS agent path: ``CartPoleEnv/MCTSAgent.json`` for one episode, cut to
-   10 steps as the OLOP agent's;
+   5 steps as the OLOP agent's;
 8. the MDP-GapE batch path: ``mdp_gape_plan_batch``, 4096 trees on the garnet
    MDP of ``FiniteMDPEnv/env_garnet.json`` at the sizes of
    ``FiniteMDPEnv/agents/mdp-gape.json`` (confidence 1.0) and again at the
@@ -40,7 +40,7 @@ non-zero without its final line:
    every Newton trip and one profiled at confidence 1.0; one timed plan, not
    profiled, at 0.9);
 9. the MDP-GapE agent path: ``mdp-gape.json`` on ``env_garnet.json`` for one
-   episode, cut to 5 steps;
+   episode, cut to 3 steps;
 10. the stochastic GBOP batch path: ``gbop_stochastic_plan_batch`` on the
     Sailing domain (``SailingEnv/env.json``, size 8), 4096 trees from random
     starts at the sizes of ``SailingEnv/agents/gbop.json`` (3 episodes x
@@ -54,7 +54,7 @@ non-zero without its final line:
 12. the OPD batch path: ``opd_plan_batch`` on CartPole, 4096 trees, 115
     expansions; no kernel;
 13. the Sailing agent paths: ``gbop.json``, ``gbop-d.json`` and ``opd.json`` on
-    ``SailingEnv/env.json``, a cut episode each;
+    ``SailingEnv/env.json``, 3 steps each;
 14. the highway batch paths at the full width of ``HighwayEnv/env.json`` (15
     vehicles on 4 lanes), at the JAX bench's sizes (``bench.py:242-367``):
     MCTS (4096 trees, 23 x 8), OPD (4096 trees, 46 expansions), GBOP-D (4096
@@ -64,7 +64,7 @@ non-zero without its final line:
     ``merge-v0`` (4096 trees x 2 models, 40 expansions); each timed, profiled
     (MCTS over 3 episodes of its 23) and its first 64 trees held against the
     CPU plan under the same noise;
-15. the highway agent paths, 5 steps each: ``DeterministicPlannerAgent.json``,
+15. the highway agent paths, 3 steps each: ``DeterministicPlannerAgent.json``,
     ``MCTSAgent.json``, ``OLOPAgent/kl-olop.json`` and
     ``IntervalRobustPlannerAgent/baseline.json`` on ``HighwayEnv/env.json``,
     and ``DiscreteRobustPlannerAgent.json`` on ``MergeEnv/env.json``;
@@ -103,14 +103,15 @@ non-zero without its final line:
     step, the forwards counted; 3 timed plans, a plan of 3 episodes
     profiled, the first 64 trees of a plan held against the CPU plan under
     the same noise;
-21. the MCTS-with-prior agent paths, 5 steps each: ``baseline.json`` with its
+21. the MCTS-with-prior agent paths, 3 steps each: ``baseline.json`` with its
     ``model_save`` pointing at a DQN checkpoint written here with
     ``DQNAgent.save``, and ``vi_prior.json`` with ``simplify``;
 22. FTQ: ``HighwayEnv/agents/FTQAgent/baseline.json`` through
     ``Evaluation(training=True).train()`` for 71 episodes' worth of samples
-    (one batch of 994, fitted once: 15 epochs x 400 regression steps), ms per
-    regression step and per ``update()``; then one epoch (400 steps under the
-    same indices) on the card and on the CPU, in float32 and in float64, from
+    (one batch of 994, fitted once: 15 epochs x 100 regression steps, cut
+    from the config's 400 for the time limit), ms per regression step and per
+    ``update()``; then one epoch (100 steps under the same indices) on the
+    card and on the CPU, in float32 and in float64, from
     fresh parameters and from the trained ones: the float64 epochs and the
     first step's float32 gradients within 1e-5 of each leaf's largest entry;
     the float32 epochs measured against each other and the float64 one, the
@@ -125,8 +126,33 @@ non-zero without its final line:
     15 x 5000), so that the second epoch bootstraps through the hull; its
     target computation profiled on 256 transitions, the first 8 of them
     held against the CPU (mixture indices equal, targets within 1e-5);
-24. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
-    last line. The DQN paths and the paths of phases 19-23 launch no hand
+24. MCTS-DPW at ``MCTSDPWAgent``'s defaults (budget 100, gamma 0.95: 5
+    episodes x horizon 16) on Sailing, 4096 trees, its first 64 against the
+    CPU plan under the same draws;
+25. closed-loop MCTS on the uncut highway at the bench's 4096 trees x 23 x
+    8 (observations keyed in 8 slots an action), the first 64 against the
+    CPU; ``MCTSAgent/closed_loop.json`` for 3 steps;
+26. BRUE at ``SailingEnv/agents/brue.json`` (budget 200, horizon 55), 4096
+    trees from the env's reset states (one timed plan; a one-episode plan,
+    budget 1, profiled), the first 64 against the CPU under the same draws; the agent
+    for 3 steps;
+27. sparse sampling at ``FiniteMDPEnv/agents/sparse_sampling.json`` (C = 3,
+    horizon 3) on the garnet, 4096 trees against 64 on the CPU; the agent
+    for 3 steps;
+28. CEM: ``CartPoleEnv/CEMAgent.json`` and ``HighwayEnv/agents/CEMAgent/
+    cem.json``, 3 steps each, each plan against the CPU's under the same
+    normals;
+29. PlaTyPOOS: ``HighwayEnv/agents/PlaTyPOOSAgent/baseline.json``, 3 steps,
+    each plan against a CPU agent's from the same state;
+30. TrailBlazer: 512 lockstep instances on the loop MDP at an oracle budget
+    of 500 (``bench.py:624-671``), plans/s and dispatches per plan, the first
+    64 values against a CPU run;
+31. PCG64: 2^16 raw draws (64 streams x 1,024), then bounded integers and
+    doubles, bit-equal to numpy's ``Generator(PCG64)``; the MCTS, OLOP and
+    OPD parity plans in float64 for 16 seeds against the same plans on the
+    CPU (plans, counts and stream digits equal);
+32. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
+    last line. The DQN paths and the paths of phases 19-31 launch no hand
     kernel: their products and softmax are ``torch.matmul`` / ``softmax``,
     and the hull is tensor functions, as the JAX package computes them
     outside any Pallas kernel.
@@ -164,8 +190,8 @@ ARENA = 1 + EPISODES * HORIZON * 2  # nodes per tree of the CartPole plan (2 act
 DENSE_LARGE = 1 << 24  # the dense form where bytes should bind
 CPU_SUBSET = 64
 AGENT_CONFIG = {"__class__": "OLOPAgent", "budget": 184, "gamma": GAMMA}
-AGENT_MAX_STEPS = 10
-GARNET_AGENT_STEPS = 5  # of the 20 of env_garnet.json
+AGENT_MAX_STEPS = 5  # agent episodes are cut for the time limit (PERF.md §4)
+GARNET_AGENT_STEPS = 3  # of the 20 of env_garnet.json
 PLANS = 3  # timed plans of each batch path
 CONFIGS = REPO / "scripts" / "configs"
 MCTS_TEMPERATURE = 40.0
@@ -201,7 +227,7 @@ GBOP_D = dict(num_actions=SAILING_ACTIONS, expansions=SAILING_BUDGET // SAILING_
               gamma=SAILING_GAMMA, accuracy=1e-2)
 # OPD on CartPole at the JAX bench's budget: 230 / 2 actions = 115 expansions
 OPD = dict(num_actions=2, expansions=115, gamma=GAMMA)
-SAILING_AGENT_STEPS = 5
+SAILING_AGENT_STEPS = 3
 # The highway family at the full width of HighwayEnv/env.json (15 vehicles, 4
 # lanes, 40 steps) and 5 meta-actions. The JAX bench's highway lines
 # (bench.py:242-367): MCTS at the headline's 23 x 8, OPD with 46 expansions
@@ -225,7 +251,7 @@ HW_OLOP_BUDGET, HW_OLOP_GAMMA = 500, 0.7
 HW_OLOP = dict(num_actions=HW_ACTIONS, episodes=72, horizon=6, gamma=HW_OLOP_GAMMA,
                threshold_coeff=2.0, continuation_uniform=True)
 HW_DROP = dict(num_actions=HW_ACTIONS, expansions=200 // HW_ACTIONS, gamma=0.9)
-HIGHWAY_AGENT_STEPS = 5
+HIGHWAY_AGENT_STEPS = 3
 # MCTS on highway launches about 2,900 kernels an episode: its profiled
 # plan runs a few episodes of the same trees. KL-OLOP's profiled plan stays
 # whole: the profiler's count of its KL kernels is held to one an episode,
@@ -266,7 +292,8 @@ DP_STOCHASTIC_REL = 1e-6
 PRIOR_LAYERS, PRIOR_TEMPERATURE = (512, 512), 0.5
 PRIOR_PROFILED_EPISODES = 3
 FTQ_EPISODES = 71
-FTQ_WITNESS = (1, 10, 100, 400)  # steps after which the epochs are compared
+FTQ_STEPS = 100  # regression steps an epoch, cut from baseline.json's 400 for the time limit
+FTQ_WITNESS = (1, 10, 100)  # steps after which the epochs are compared
 BFTQ_STATES, BFTQ_BUDGETS, BFTQ_REGRESSION = 4096, 10, 50
 BFTQ_TOLERANCE = 1e-5
 # the two-way agent: 2 epochs, so that the second bootstraps through the
@@ -1387,7 +1414,7 @@ def check_highway_batch_paths(dev) -> dict:
 
 
 def check_highway_agent_paths(dev) -> dict:
-    """Five agent paths, 5 steps each, through ``load_environment`` /
+    """Five agent paths, 3 steps each, through ``load_environment`` /
     ``load_agent`` / ``Evaluation.test``."""
     from rl_agents_torch.factory import preprocess_env
 
@@ -1903,7 +1930,7 @@ def check_mcts_prior_batch_path(dev) -> dict:
 def check_mcts_prior_agent_paths(dev) -> dict:
     """``baseline.json`` with its ``model_save`` pointing at a DQN checkpoint
     written here with ``DQNAgent.save``, and ``vi_prior.json`` with the
-    ``simplify`` preprocessor, 5 steps each on the uncut highway env."""
+    ``simplify`` preprocessor, 3 steps each on the uncut highway env."""
     from rl_agents_torch.factory import load_agent, load_agent_config, load_environment
 
     highway = json.loads((CONFIGS / "HighwayEnv" / "env.json").read_text())
@@ -1999,8 +2026,9 @@ def ftq_epochs(agent, start: dict, target: dict, indices, runs: dict) -> dict:
 def check_ftq(dev) -> dict:
     """``HighwayEnv/agents/FTQAgent/baseline.json`` through
     ``Evaluation(training=True).train()``: 71 episodes' worth of samples, one
-    batch of at most 1000 collected and fitted once (15 epochs x 400
-    regression steps); then one epoch under the same indices on the card and
+    batch of at most 1000 collected and fitted once (15 epochs x
+    ``FTQ_STEPS`` regression steps, the config's 400 cut for the time
+    limit); then one epoch under the same indices on the card and
     on the CPU, from the fresh parameters an epoch starts from and from the
     trained ones, in float32 and in float64. The float64 epochs and the
     first step's float32 gradients are held within ``MODEL_TOLERANCE``. The
@@ -2011,17 +2039,18 @@ def check_ftq(dev) -> dict:
     step by step."""
     from rl_agents_torch.agents.dqn.agent import loss_and_gradients, model_params
     from rl_agents_torch.agents.dqn.replay import Batch
-    from rl_agents_torch.factory import load_agent, load_environment
+    from rl_agents_torch.factory import load_agent, load_agent_config, load_environment
     from rl_agents_torch.models.optimizers import loss_function_factory
     from rl_agents_torch.models.zoo import init_parameters
     from rl_agents_torch.trainer.evaluation import Evaluation
 
     env = load_environment(CONFIGS / "HighwayEnv" / "env.json", device=dev)
-    agent = load_agent(CONFIGS / "HighwayEnv" / "agents" / "FTQAgent" / "baseline.json", env,
-                       device=dev)
+    config = load_agent_config(CONFIGS / "HighwayEnv" / "agents" / "FTQAgent" / "baseline.json")
+    expect(config["regression_epochs"] == 400, "FTQAgent/baseline.json: not 400 regression steps")
+    agent = load_agent(dict(config, regression_epochs=FTQ_STEPS), env, device=dev)
     epochs, steps = agent.value_iteration_epochs, agent.config["regression_epochs"]
-    expect(agent.batched and epochs == 15 and steps == 400 and FTQ_WITNESS[-1] == steps,
-           "FTQAgent/baseline.json: not 15 epochs x 400 regression steps")
+    expect(agent.batched and epochs == 15 and steps == FTQ_STEPS and FTQ_WITNESS[-1] == steps,
+           f"FTQ path: not 15 epochs x {FTQ_STEPS} regression steps")
     update = agent.update
     timing = {}
 
@@ -2286,6 +2315,465 @@ def check_bftq(dev) -> dict:
             "agent_target_busy_share": profiled["busy_share"]}
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: the remaining planners and the parity modes. None reaches a
+# Pallas kernel in the JAX package, so none launches a hand kernel here.
+# ---------------------------------------------------------------------------
+
+SLICE8_AGENT_STEPS = 3
+BRUE_CHAIN = 64  # positions of BRUE's injected draw chain (past it the last one repeats)
+TB_BATCH, TB_BUDGET = 512, 500  # bench_trailblazer_batched (bench.py:624-671)
+TB_KW = dict(gamma=0.5, delta=0.1, epsilon=4.0, max_oracle_calls=TB_BUDGET)
+LOOP_MDP = {"mode": "deterministic",
+            "transition": [[0, 1, 2], [0, 3, 2], [0, 1, 3], [3, 1, 2]],
+            "reward": [[0, 1, 0.9], [0, 0, 0.9], [0, 1, 0], [0, 1, 0.9]],
+            "terminal": [0, 0, 0, 0], "max_episode_steps": 10_000}
+TIE_MDP = {"mode": "deterministic", "transition": [[1, 2, 0], [1, 3, 3], [2, 3, 3], [3, 3, 3]],
+           "reward": [[0.5, 0.5, 0.0], [1.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0, 0, 0]],
+           "terminal": [0, 0, 0, 0], "max_episode_steps": 100}
+PCG_STREAMS, PCG_DRAWS = 64, 1024  # 2^16 raw draws
+PARITY_SEEDS = list(range(16))
+MCTS_PARITY = dict(num_actions=3, episodes=25, horizon=6, gamma=0.8, temperature=10.0)
+OLOP_PARITY = dict(num_actions=3, episodes=12, horizon=4, gamma=0.8, continuation_uniform=True)
+OPD_PARITY = dict(num_actions=3, expansions=3, gamma=0.5, plan_capacity=8)
+
+
+def slice8_batch_path(name: str, plan, work: int, unit: str, profiled=None,
+                      count: int = PLANS) -> dict:
+    """``count`` timed plans with the KL counters zeroed before and read
+    after (0 launches asserted), then one profiled plan (``profiled``, a
+    shorter plan where a whole one has too many kernels to trace)."""
+    reset_launches()
+    times = timed_plans(plan, count)
+    launches = read_launches()
+    expect_launches(name, launches, 0, 0)
+    ms = report_plans(f"{name}", times, work, unit)
+    prof = profile_plan(profiled or plan, host_events=False)
+    expect(prof["kl_launches"] == 0, f"{name}: the profiler saw KL kernels")
+    return {"launches": launches, "ms": ms, "kernels": prof["kernels"],
+            "busy_share": prof["busy_share"]}
+
+
+def tree_fields(action, tree) -> dict:
+    from rl_agents_torch.convert import tree_to_numpy
+
+    return dict(tree_to_numpy(tree)._asdict(), actions=action.cpu().numpy())
+
+
+def cut_trees(noise, n: int, axis: int):
+    """The first ``n`` trees of every array of a noise NamedTuple, on the CPU."""
+    return type(noise)(*(None if x is None else x.narrow(axis, 0, n).cpu() for x in noise))
+
+
+def dpw_noise(dev, episodes, horizon, trees, num_actions, width, seed, expand=True):
+    """``DPWNoise`` for Sailing drawn on the card from a seed: Gumbel draws,
+    the random slot for each slot count, and the wind's uniforms."""
+    from rl_agents_torch.agents.tree_search.mcts_dpw import DPWNoise
+    from rl_agents_torch.utils.noise import gumbel, uniform
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E, H, B, A, W = episodes, horizon, trees, num_actions, width
+    draws = gumbel((3, E, H, B, A), g, dev)
+    u = uniform((E, H, B, 1), g, dev)
+    slot = torch.floor(u * torch.arange(1, W + 1, device=dev)).to(torch.int64)
+    return DPWNoise(expand=draws[2] if expand else None, select=draws[0], slot=slot,
+                    env=uniform((E, H, B), g, dev), rollout=draws[1],
+                    rollout_env=uniform((E, H, B), g, dev))
+
+
+def check_mcts_dpw_path(dev) -> dict:
+    """MCTS-DPW at ``MCTSDPWAgent``'s defaults (budget 100, gamma 0.95: 5
+    episodes x horizon 16, temperature 1, k 3 / 1, alpha 0.3, 8 outcome
+    slots) on Sailing, 4096 trees; the first 64 against the CPU plan under
+    the same draws."""
+    from rl_agents_torch.agents.tree_search.batch import mcts_dpw_plan_batch
+    from rl_agents_torch.agents.tree_search.common import allocation
+    from rl_agents_torch.agents.tree_search.mcts_dpw import MCTSDPWAgent
+
+    config = MCTSDPWAgent.default_config()
+    episodes, horizon = allocation(config["budget"], config["gamma"])
+    env, params, states = sailing_case(dev)
+    probs = torch.ones(SAILING_ACTIONS) / SAILING_ACTIONS
+    kw = dict(num_actions=SAILING_ACTIONS, episodes=episodes, horizon=horizon,
+              gamma=config["gamma"], temperature=config["temperature"],
+              k_action=config["k_action"], alpha_action=config["alpha_action"],
+              k_state=config["k_state"], alpha_state=config["alpha_state"],
+              width=config["max_next_states_count"])
+    states0 = states(dev, TREES)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    plan = lambda: mcts_dpw_plan_batch(env, params, states0, generator, probs, device=dev, **kw)
+    plan()  # warm-up
+    result = slice8_batch_path(f"mcts_dpw_plan_batch B={TREES} episodes={episodes} "
+                               f"horizon={horizon}", plan, TREES * episodes * horizon, "env-steps")
+    noise = dpw_noise(dev, episodes, horizon, TREES, SAILING_ACTIONS, kw["width"], 7)
+    got = tree_fields(*mcts_dpw_plan_batch(env, params, states0, None, probs, noise=noise,
+                                           device=dev, **kw))
+    expect((got["d_count"][:, 0] == episodes).all() and np.isfinite(got["d_value"]).all(),
+           "MCTS-DPW plan: invalid root counts or values")
+    want = tree_fields(*mcts_dpw_plan_batch(env, env.default_params(CPU), states(CPU, CPU_SUBSET),
+                                            None, probs, noise=cut_trees(noise, CPU_SUBSET, 2),
+                                            device=CPU, **kw))
+    same_on_cpu("mcts_dpw_plan_batch", got, want,
+                ("actions", "d_count", "d_children", "c_count", "c_child_keys", "c_children"),
+                ("d_value", "c_value"), CPU_SUBSET)
+    return result
+
+
+def check_closed_loop_paths(dev) -> dict:
+    """Closed-loop MCTS on the uncut highway (15 vehicles, 4 lanes) at the
+    bench's 4096 trees x 23 x 8, its observations keyed in 8 slots per
+    action; the first 64 trees against the CPU plan under the same draws;
+    then ``MCTSAgent/closed_loop.json`` for 3 steps."""
+    from rl_agents_torch.agents.tree_search.batch import mcts_closed_loop_plan_batch
+    from rl_agents_torch.factory import load_agent, load_environment
+
+    env, params, states = highway_case(dev)
+    probs = torch.ones(HW_ACTIONS) / HW_ACTIONS
+    kw = dict(num_actions=HW_ACTIONS, episodes=EPISODES, horizon=HORIZON, gamma=GAMMA,
+              temperature=MCTS_TEMPERATURE, width=8)
+    p, states0 = params(dev), states(dev, TREES)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    plan = lambda: mcts_closed_loop_plan_batch(env, p, states0, generator, probs, probs,
+                                               device=dev, **kw)
+    short = lambda: mcts_closed_loop_plan_batch(env, p, states0, generator, probs, probs,
+                                                device=dev, **dict(kw, episodes=3))
+    result = slice8_batch_path(f"mcts_closed_loop_plan_batch on highway B={TREES} "
+                               f"episodes={EPISODES} horizon={HORIZON}", plan,
+                               TREES * EPISODES * HORIZON, "env-steps", profiled=short)
+    print(f"  the profiled plan ran 3 of {EPISODES} episodes")
+    noise = dpw_noise(dev, EPISODES, HORIZON, TREES, HW_ACTIONS, kw["width"], 9, expand=False)
+    noise = noise._replace(env=None, rollout_env=None)  # highway draws nothing
+    got = tree_fields(*mcts_closed_loop_plan_batch(env, p, states0, None, probs, probs,
+                                                   noise=noise, device=dev, **kw))
+    expect((got["d_count"][:, 0] == EPISODES).all() and np.isfinite(got["d_value"]).all(),
+           "closed-loop MCTS plan: invalid root counts or values")
+    started = time.time()
+    want = tree_fields(*mcts_closed_loop_plan_batch(
+        env, params(CPU), states(CPU, CPU_SUBSET), None, probs, probs,
+        noise=cut_trees(noise, CPU_SUBSET, 2), device=CPU, **kw))
+    print(f"  CPU plan of {CPU_SUBSET} trees: {time.time() - started!r} s")
+    same_on_cpu("mcts_closed_loop_plan_batch", got, want,
+                ("actions", "d_count", "d_children", "c_count", "c_child_keys", "c_children"),
+                ("d_value", "c_value"), CPU_SUBSET)
+    highway = json.loads((CONFIGS / "HighwayEnv" / "env.json").read_text())
+    highway["max_episode_steps"] = SLICE8_AGENT_STEPS
+    handle = load_environment(highway, device=dev)
+    agent = load_agent(CONFIGS / "HighwayEnv" / "agents" / "MCTSAgent" / "closed_loop.json",
+                       handle, device=dev)
+    expect(agent.config["closed_loop"], "closed_loop.json: not closed loop")
+    agent_result = timed_agent_episode(
+        dev, "MCTSAgent (closed_loop.json) on highway", handle, agent,
+        f", {agent.config['episodes']} episodes x horizon {agent.config['horizon']}")
+    return {"closed_loop_batch_plans": result, "closed_loop_agent": agent_result}
+
+
+def check_brue_paths(dev) -> dict:
+    """``SailingEnv/agents/brue.json`` (budget 200 env steps, gamma 0.99: a
+    horizon of 55, arenas of 11,001 nodes) on ``SailingEnv/env.json``: 4096
+    trees from the env's reset states, the first 64 against the CPU plan
+    under the same draws; then the agent for 3 steps."""
+    from rl_agents_torch.agents.tree_search.batch import brue_plan_batch
+    from rl_agents_torch.agents.tree_search.brue import BRUENoise
+    from rl_agents_torch.agents.tree_search.common import allocation
+    from rl_agents_torch.factory import load_agent, load_environment
+    from rl_agents_torch.utils.noise import gumbel, uniform
+
+    config = json.loads((CONFIGS / "SailingEnv" / "agents" / "brue.json").read_text())
+    _, horizon = allocation(config["budget"], config["gamma"])
+    env, params, _ = sailing_case(dev)
+    start, _ = env.reset(env.default_params(CPU), torch.Generator().manual_seed(6), TREES)
+
+    def states(device, n):
+        return type(start)(*(x[:n].to(device) for x in start))
+
+    kw = dict(num_actions=SAILING_ACTIONS, budget=config["budget"], horizon=horizon,
+              gamma=config["gamma"], width=8)
+    states0 = states(dev, TREES)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    plan = lambda: brue_plan_batch(env, params, states0, generator, device=dev, **kw)
+    short = lambda: brue_plan_batch(env, params, states0, generator, device=dev,
+                                    **dict(kw, budget=1))
+    result = slice8_batch_path(f"brue_plan_batch B={TREES} budget={config['budget']} "
+                               f"horizon={horizon}", plan, TREES * config["budget"],
+                               "budgeted env-steps", profiled=short, count=1)
+    print("  the profiled plan ran one episode (budget 1)")
+    g = torch.Generator(device=dev).manual_seed(8)
+    I, B, H, W, A = BRUE_CHAIN, TREES, horizon, 8, SAILING_ACTIONS
+    noise = BRUENoise(rollout_actions=torch.randint(0, A, (I, B, H), generator=g, device=dev),
+                      rollout_env=uniform((I, B, H), g, dev),
+                      estimate=gumbel((I, B, H, W), g, dev), final=gumbel((I, B, A), g, dev))
+    got = tree_fields(*brue_plan_batch(env, params, states0, None, noise=noise, device=dev, **kw))
+    expect(np.isfinite(got["c_value"]).all() and got["c_count"][:, 0].sum() > 0,
+           "BRUE plan: invalid values")
+    started = time.time()
+    want = tree_fields(*brue_plan_batch(env, env.default_params(CPU), states(CPU, CPU_SUBSET),
+                                        None, noise=cut_trees(noise, CPU_SUBSET, 1), device=CPU,
+                                        **kw))
+    print(f"  CPU plan of {CPU_SUBSET} trees: {time.time() - started!r} s")
+    same_on_cpu("brue_plan_batch", got, want,
+                ("actions", "d_count", "d_children", "c_count", "c_child_keys", "c_children",
+                 "d_used", "c_used"), ("d_reward", "c_value"), CPU_SUBSET)
+    sailing = json.loads((CONFIGS / "SailingEnv" / "env.json").read_text())
+    sailing["max_episode_steps"] = SLICE8_AGENT_STEPS
+    handle = load_environment(sailing, device=dev)
+    agent = load_agent(CONFIGS / "SailingEnv" / "agents" / "brue.json", handle, device=dev)
+    agent_result = timed_agent_episode(dev, "BRUEAgent (brue.json) on Sailing", handle, agent)
+    return {"brue_batch_plans": result, "brue_agent": agent_result}
+
+
+def check_sparse_sampling_paths(dev) -> dict:
+    """``FiniteMDPEnv/agents/sparse_sampling.json`` (C = 3, horizon 3, gamma
+    0.7) on the garnet of ``env_garnet.json``: 4096 trees, 1,728 sampled
+    transitions at the last level of each, the first 64 against the CPU plan
+    under the same draws; then the agent for 3 steps."""
+    from rl_agents_torch.agents.tree_search.batch import sparse_sampling_plan_batch
+    from rl_agents_torch.factory import load_agent, load_environment
+    from rl_agents_torch.utils.noise import gumbel
+
+    config = json.loads((CONFIGS / "FiniteMDPEnv" / "agents" / "sparse_sampling.json")
+                        .read_text())
+    env, params, states = garnet_case(dev, branching=2)
+    A, C, H = GAPE["num_actions"], config["C"], config["horizon"]
+    kw = dict(num_actions=A, horizon=H, samples=C, gamma=config["gamma"])
+    states0 = states(dev, TREES)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    plan = lambda: sparse_sampling_plan_batch(env, params, states0, generator, device=dev, **kw)
+    plan()  # warm-up
+    work = TREES * sum((A * C) ** (d + 1) for d in range(H))
+    result = slice8_batch_path(f"sparse_sampling_plan_batch B={TREES} C={C} horizon={H}", plan,
+                               work, "env-steps")
+    g = torch.Generator(device=dev).manual_seed(10)
+    noise = [gumbel((TREES, (A * C) ** d, A, C, 2), g, dev) for d in range(H)]
+    action, q = sparse_sampling_plan_batch(env, params, states0, None, noise=noise, device=dev,
+                                           **kw)
+    got = {"actions": action.cpu().numpy(), "q": q.cpu().numpy()}
+    expect(np.isfinite(got["q"]).all(), "sparse sampling: invalid Q values")
+    action, q = sparse_sampling_plan_batch(env, params.__class__(*(v.cpu() for v in params)),
+                                           states(CPU, CPU_SUBSET), None,
+                                           noise=[n[:CPU_SUBSET].cpu() for n in noise],
+                                           device=CPU, **kw)
+    same_on_cpu("sparse_sampling_plan_batch", got, {"actions": action.numpy(), "q": q.numpy()},
+                ("actions",), ("q",), CPU_SUBSET)
+    garnet = json.loads((CONFIGS / "FiniteMDPEnv" / "env_garnet.json").read_text())
+    garnet["max_episode_steps"] = SLICE8_AGENT_STEPS
+    handle = load_environment(garnet, device=dev)
+    agent = load_agent(CONFIGS / "FiniteMDPEnv" / "agents" / "sparse_sampling.json", handle,
+                       device=dev)
+    agent_result = timed_agent_episode(dev, "SparseSamplingAgent on the garnet", handle, agent)
+    return {"sparse_sampling_batch_plans": result, "sparse_sampling_agent": agent_result}
+
+
+def to_cpu_handle(handle, cpu_handle):
+    """Stamp a card handle's state into a CPU handle of the same env."""
+    cpu_handle.state = type(handle.state)(*(x.cpu() for x in handle.state))
+    return cpu_handle
+
+
+def check_cem_paths(dev) -> dict:
+    """``CartPoleEnv/CEMAgent.json`` and ``HighwayEnv/agents/CEMAgent/cem.json``,
+    3 steps each through ``act()``; before each step the plan on the card
+    against the CPU's from the same state under the same normals (the mean
+    within 1e-5, the plan ``mean > 0.5`` equal)."""
+    from rl_agents_torch.agents.cem import CEMNoise, cem_plan
+    from rl_agents_torch.factory import load_agent, load_environment
+
+    result = {}
+    for key, env_file, agent_file in (
+            ("cem_cartpole_agent", CONFIGS / "CartPoleEnv" / "env.json",
+             CONFIGS / "CartPoleEnv" / "CEMAgent.json"),
+            ("cem_highway_agent", CONFIGS / "HighwayEnv" / "env.json",
+             CONFIGS / "HighwayEnv" / "agents" / "CEMAgent" / "cem.json")):
+        handle = load_environment(env_file, device=dev)
+        cpu_handle = load_environment(env_file, device=CPU)
+        agent = load_agent(agent_file, handle, device=dev)
+        c = agent.config
+        kw = dict(horizon=c["horizon"], iterations=c["iterations"], candidates=c["candidates"],
+                  top_candidates=c["top_candidates"], gamma=c["gamma"],
+                  action_size=agent.action_size, discrete=agent.discrete)
+        handle.reset(seed=0)
+        reset_launches()
+        seconds, worst = [], 0.0
+        for step in range(SLICE8_AGENT_STEPS):
+            g = torch.Generator(device=dev).manual_seed(20 + step)
+            normals = torch.randn((kw["iterations"], 1, kw["candidates"], kw["horizon"],
+                                   kw["action_size"]), generator=g, device=dev)
+            mean, _ = cem_plan(handle.functional, handle.params, handle.state, None,
+                               noise=CEMNoise(normals, None), device=dev, **kw)
+            cpu = to_cpu_handle(handle, cpu_handle)
+            want, _ = cem_plan(cpu.functional, cpu.params, cpu.state, None,
+                               noise=CEMNoise(normals.cpu(), None), device=CPU, **kw)
+            worst = max(worst, float((mean.cpu() - want).abs().max()))
+            expect(agent.plan_from_mean(mean[0]) == agent.plan_from_mean(want[0]),
+                   f"{key}: the plan differs from the CPU plan")
+            torch.cuda.synchronize()
+            started = time.time()
+            action = agent.act(None)
+            torch.cuda.synchronize()
+            seconds.append(time.time() - started)
+            handle.step(action)
+        launches = read_launches()
+        expect_launches(key, launches, 0, 0)
+        expect(worst <= KL_TOLERANCE, f"{key}: mean {worst!r} from the CPU's")
+        per_act = statistics.median(seconds)
+        print(f"{key}: {c['iterations']} iterations x {c['candidates']} candidates x horizon "
+              f"{c['horizon']}; median {per_act!r} s per act(); plans equal to the CPU's, mean "
+              f"within {worst!r}; launches {launches}")
+        result[key] = {"launches": launches, "s_per_act": per_act}
+    return result
+
+
+def check_platypoos_path(dev) -> dict:
+    """``HighwayEnv/agents/PlaTyPOOSAgent/baseline.json`` (budget 2500, gamma
+    0.9, ``simplify``) on ``HighwayEnv/env.json`` for 3 steps; each plan
+    against a CPU agent's from the same state."""
+    from rl_agents_torch.factory import load_agent, load_environment
+
+    env_file = CONFIGS / "HighwayEnv" / "env.json"
+    agent_file = CONFIGS / "HighwayEnv" / "agents" / "PlaTyPOOSAgent" / "baseline.json"
+    handle = load_environment(env_file, device=dev)
+    cpu_handle = load_environment(env_file, device=CPU)
+    agent = load_agent(agent_file, handle, device=dev)
+    cpu_agent = load_agent(agent_file, cpu_handle, device=CPU)
+    handle.reset(seed=0)
+    reset_launches()
+    seconds, steps = [], []
+    for _ in range(SLICE8_AGENT_STEPS):
+        torch.cuda.synchronize()
+        started = time.time()
+        plan = agent.plan(None)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - started)
+        steps.append(agent.env_steps)
+        to_cpu_handle(handle, cpu_handle)
+        expect(plan == cpu_agent.plan(None), "PlaTyPOOS: the plan differs from the CPU plan")
+        handle.step(plan[0])
+    launches = read_launches()
+    expect_launches("PlaTyPOOS agent path", launches, 0, 0)
+    per_act = statistics.median(seconds)
+    print(f"PlaTyPOOSAgent (baseline.json) on highway: horizon {agent.config['horizon']}, "
+          f"median {per_act!r} s per plan, {steps} env transitions a plan (padding included), "
+          f"{agent.openings} openings in the last; plans equal to the CPU's; launches {launches}")
+    return {"launches": launches, "s_per_act": per_act, "env_steps": steps[-1]}
+
+
+def check_trailblazer_path(dev) -> dict:
+    """``BatchedTrailBlazer`` at the JAX bench's 512 lockstep instances on the
+    loop MDP (gamma 0.5, delta 0.1, epsilon 4, oracle budget 500); the first
+    64 instances' values against a CPU run of the same 64."""
+    from rl_agents_torch.agents.tree_search.trailblazer import BatchedTrailBlazer, TrailBlazer
+    from rl_agents_torch.envs.finite_mdp import make
+
+    handle = make(LOOP_MDP, device=dev)
+    single = TrailBlazer(handle, **TB_KW)
+    single.run()
+    reset_launches()
+    torch.cuda.synchronize()
+    started = time.time()
+    batched = BatchedTrailBlazer(handle, [handle.state] * TB_BATCH, **TB_KW)
+    values = batched.run()
+    torch.cuda.synchronize()
+    seconds = time.time() - started
+    launches = read_launches()
+    expect_launches("TrailBlazer path", launches, 0, 0)
+    cpu = make(LOOP_MDP, device=CPU)
+    want = BatchedTrailBlazer(cpu, [cpu.state] * CPU_SUBSET, **TB_KW).run()
+    expect(np.array_equal(values[:CPU_SUBSET], want) and np.isfinite(values).all(),
+           "TrailBlazer: the values differ from the CPU run")
+    rate = TB_BATCH / seconds
+    print(f"BatchedTrailBlazer B={TB_BATCH} oracle budget {TB_BUDGET}: {seconds!r} s, "
+          f"{rate!r} plans/s, {batched.dispatches / TB_BATCH!r} dispatches per plan "
+          f"({batched.dispatches} rounds; one instance alone: {single.dispatches}), root value "
+          f"{values[0]!r}; the first {CPU_SUBSET} equal to the CPU run; launches {launches}")
+    return {"launches": launches, "plans_per_s": rate,
+            "dispatches_per_plan": batched.dispatches / TB_BATCH}
+
+
+def check_parity_paths(dev) -> dict:
+    """PCG64 on the card: 2^16 raw draws (64 streams x 1,024), then bounded
+    integers and doubles, bit-equal to numpy's ``Generator(PCG64)``; the
+    MCTS, OLOP and OPD parity plans in float64 for 16 seeds on the card
+    against the same plans on the CPU: actions, counts, stream digits equal,
+    float64 fields within 1e-12."""
+    from rl_agents_torch.agents.tree_search.deterministic import opd_plan_parity
+    from rl_agents_torch.agents.tree_search.mcts_parity import mcts_plan_parity
+    from rl_agents_torch.agents.tree_search.olop_parity import olop_plan_parity
+    from rl_agents_torch.envs.finite_mdp import MDPState, params_from_config
+    from rl_agents_torch.utils.pcg64 import (
+        pcg64_double,
+        pcg64_init,
+        pcg64_integers,
+        pcg64_next64,
+    )
+
+    reset_launches()
+    seeds = list(range(PCG_STREAMS))
+    stream, inc = pcg64_init(seeds, device=dev)
+    torch.cuda.synchronize()
+    started = time.time()
+    hi, lo = [], []
+    for _ in range(PCG_DRAWS):
+        stream, (h, l) = pcg64_next64(stream, inc)
+        hi.append(h)
+        lo.append(l)
+    torch.cuda.synchronize()
+    seconds = time.time() - started
+    got = (torch.stack(hi, 1).cpu().numpy().astype(np.uint64) << np.uint64(32)) \
+        | torch.stack(lo, 1).cpu().numpy().astype(np.uint64)
+    want = np.stack([np.random.PCG64(s).random_raw(PCG_DRAWS) for s in seeds])
+    expect(np.array_equal(got, want), "PCG64 raw draws differ from numpy's")
+    gens = [np.random.Generator(np.random.PCG64(s)) for s in seeds]
+    for g in gens:
+        g.bit_generator.random_raw(PCG_DRAWS)
+    bounds = np.random.default_rng(0).integers(2, 2 ** 32 - 1, (64, PCG_STREAMS))
+    for n in bounds:
+        stream, v = pcg64_integers(stream, inc, torch.tensor(n, device=dev))
+        expect(v.tolist() == [int(g.integers(0, int(k))) for g, k in zip(gens, n)],
+               "PCG64 integers differ from numpy's")
+        stream, d = pcg64_double(stream, inc)
+        expect(d.tolist() == [g.random() for g in gens], "PCG64 doubles differ from numpy's")
+    print(f"PCG64: {PCG_STREAMS * PCG_DRAWS} raw draws in {seconds!r} s "
+          f"({PCG_DRAWS} steps of {PCG_STREAMS} streams), then 64 bounded integers and 64 "
+          f"doubles a stream: bit-equal to numpy's Generator(PCG64)")
+
+    plans = {}
+    for name, config, fn, kw in (("mcts_parity", LOOP_MDP, mcts_plan_parity, MCTS_PARITY),
+                                 ("olop_parity", LOOP_MDP, olop_plan_parity, OLOP_PARITY),
+                                 ("opd_parity", TIE_MDP, opd_plan_parity, OPD_PARITY)):
+        out = []
+        for device in (dev, CPU):
+            env, params = params_from_config(config, device=device)
+            n = len(PARITY_SEEDS)
+            state = MDPState(*(torch.zeros(n, dtype=dtype, device=device)
+                               for dtype in (torch.int64, torch.int64, torch.bool)))
+            stream, inc = pcg64_init(PARITY_SEEDS, device=device)
+            torch.cuda.synchronize()
+            started = time.time()
+            result = fn(env, params, state, stream, inc, device=device, **kw)
+            torch.cuda.synchronize()
+            out.append((result, time.time() - started))
+        (card, card_s), (cpu, cpu_s) = out
+        actions, lengths, arena, stream = card[:4]
+        expect(torch.equal(actions.cpu(), cpu[0]) and torch.equal(lengths.cpu(), cpu[1]),
+               f"{name}: the plans differ from the CPU's")
+        expect(torch.equal(stream.digits.cpu(), cpu[3].digits)
+               and torch.equal(stream.buf.cpu(), cpu[3].buf), f"{name}: the streams differ")
+        worst = 0.0
+        fields = [(f, v, getattr(cpu[2], f)) for f, v in arena._asdict().items()
+                  if isinstance(v, torch.Tensor)]
+        for field, value, want in fields:
+            if value.is_floating_point():
+                worst = max(worst, float((value.cpu() - want).abs().max()))
+            else:
+                expect(torch.equal(value.cpu(), want), f"{name}: {field} differs")
+        expect(worst <= 1e-12, f"{name}: float64 fields {worst!r} from the CPU's")
+        print(f"{name}: {len(PARITY_SEEDS)} seeds, {card_s!r} s on the card, {cpu_s!r} s on the "
+              f"CPU; plans, counts and stream digits equal, float64 fields within {worst!r}")
+        plans[name] = card_s
+    launches = read_launches()
+    expect_launches("PCG64 and parity paths", launches, 0, 0)
+    return {"launches": launches, "pcg64_raw_s": seconds, "parity_plan_s": plans}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -2393,13 +2881,41 @@ def main():
     for path, result in slice7.items():
         paths[path] = result.pop("launches")
     print(json.dumps({"slice7": slice7}))
+    slice8 = {}
+    phase("24. MCTS-DPW batch path")
+    print(card)
+    slice8["mcts_dpw_batch_plans"] = check_mcts_dpw_path(dev)
+    phase("25. closed-loop MCTS paths")
+    print(card)
+    slice8.update(check_closed_loop_paths(dev))
+    phase("26. BRUE paths")
+    print(card)
+    slice8.update(check_brue_paths(dev))
+    phase("27. sparse sampling paths")
+    print(card)
+    slice8.update(check_sparse_sampling_paths(dev))
+    phase("28. CEM agent paths")
+    print(card)
+    slice8.update(check_cem_paths(dev))
+    phase("29. PlaTyPOOS agent path")
+    print(card)
+    slice8["platypoos_highway_agent"] = check_platypoos_path(dev)
+    phase("30. TrailBlazer")
+    print(card)
+    slice8["trailblazer_batched"] = check_trailblazer_path(dev)
+    phase("31. PCG64 and the parity planners")
+    print(card)
+    slice8["pcg64_parity"] = check_parity_paths(dev)
+    for path, result in slice8.items():
+        paths[path] = result.pop("launches")
+    print(json.dumps({"slice8": slice8}))
     for kernel in kernels:
         kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         if kernel["launches"] == 0:
             raise AssertionError(f"no path launched {kernel['name']}")
 
-    phase("24. summary")
+    phase("32. summary")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,14 +9,18 @@ place of the per-tree keys.
 from __future__ import annotations
 
 from rl_agents_torch.agents.robust.robust import robust_opd_plan
+from rl_agents_torch.agents.tree_search.brue import brue_plan
 from rl_agents_torch.agents.tree_search.deterministic import (  # noqa: F401 (re-export)
     opd_plan_batch,
 )
 from rl_agents_torch.agents.tree_search.graph_based import gbop_plan
 from rl_agents_torch.agents.tree_search.graph_based_stochastic import gbop_stochastic_plan
 from rl_agents_torch.agents.tree_search.mcts import mcts_plan_batch  # noqa: F401 (re-export)
+from rl_agents_torch.agents.tree_search.mcts_closed_loop import mcts_closed_loop_plan
+from rl_agents_torch.agents.tree_search.mcts_dpw import mcts_dpw_plan
 from rl_agents_torch.agents.tree_search.mdp_gape import mdp_gape_plan
 from rl_agents_torch.agents.tree_search.olop import olop_plan
+from rl_agents_torch.agents.tree_search.sparse_sampling import sparse_sampling_plan
 from rl_agents_torch.agents.tree_search.state_aware import state_aware_plan
 
 
@@ -25,6 +29,33 @@ def olop_plan_batch(env, params, states0, generator=None, **kw):
     scripts/planners_evaluation.py:53-124). Returns ``(actions [B, H],
     lengths [B], OLOPTree)``."""
     return olop_plan(env, params, states0, generator, **kw)
+
+
+def brue_plan_batch(env, params, states0, generator=None, **kw):
+    """Batched BRUE (reference: brue.py:11-123). Returns ``(action [B],
+    BRUETree)``."""
+    return brue_plan(env, params, states0, generator, **kw)
+
+
+def sparse_sampling_plan_batch(env, params, states0, generator=None, **kw):
+    """Batched sparse sampling (reference: sparse_sampling.py:11-103).
+    Returns ``(action [B], q_root [B, A])``."""
+    return sparse_sampling_plan(env, params, states0, generator, **kw)
+
+
+def mcts_dpw_plan_batch(env, params, states0, generator, rollout_probs, **kw):
+    """Batched MCTS-DPW (reference: mcts_dpw.py:10-193); each tree's
+    observation keys lie along the batch axis. Returns ``(action [B],
+    DPWTree)``."""
+    return mcts_dpw_plan(env, params, states0, generator, rollout_probs, **kw)
+
+
+def mcts_closed_loop_plan_batch(env, params, states0, generator, prior_probs, rollout_probs,
+                                **kw):
+    """Batched closed-loop MCTS (reference: mcts.py:147,267-273): chance
+    children keyed by observed outcomes. Returns ``(action [B], DPWTree)``."""
+    return mcts_closed_loop_plan(env, params, states0, generator, prior_probs, rollout_probs,
+                                 **kw)
 
 
 def mdp_gape_plan_batch(env, params, states0, generator=None, **kw):

@@ -37,6 +37,7 @@ from rl_agents_torch.envs.base import FunctionalEnv, params_to
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import fma
 from rl_agents_torch.utils.noise import gumbel, noise_tensor
+from rl_agents_torch.utils.pcg64 import pcg64_choice
 
 
 class OPDTree(NamedTuple):
@@ -163,16 +164,54 @@ def _greedy_plan(tree, generator, plan_capacity: int, noise=None):
     return actions, (actions >= 0).sum(dim=1)
 
 
-def _greedy_plan_pcg64(*args, **kwargs):
-    raise NotImplementedError(
-        "_greedy_plan_pcg64 is not yet ported to rl_agents_torch: it waits for the parity "
-        "modes (utils/pcg64.py; ROADMAP.md, 'Parity modes')")
+def _greedy_plan_pcg64(tree, stream, inc, plan_capacity: int):
+    """Greedy descent by value_lower with the reference's own draws: ties by
+    equality (Node.all_argmax, abstract.py:295-301) broken by
+    ``np_random.choice`` (abstract.py:303-311) on a PCG64 stream per tree
+    (``utils/pcg64.py``) that reproduces numpy bit for bit. A choice among one
+    consumes no draw (numpy's ``rng == 0`` early out), so the draws match the
+    reference's get_plan descent (abstract.py:143-156) one to one. Returns
+    ``(actions [B, P], lengths [B], stream)``."""
+    B, _, A = tree.children.shape
+    device = tree.children.device
+    rows = torch.arange(B, device=device)
+    node = torch.zeros(B, dtype=torch.int64, device=device)
+    live = torch.ones(B, dtype=torch.bool, device=device)
+    actions = []
+    for _ in range(plan_capacity):
+        ch = tree.children[rows, node]
+        valid = ch >= 0
+        vals = torch.where(valid, tree.value_lower.gather(1, ch.clamp(min=0)), -torch.inf)
+        ties = valid & (vals == vals.amax(dim=1, keepdim=True))
+        live = live & valid.any(dim=1)
+        stream, idx = pcg64_choice(stream, inc, ties.sum(dim=1), mask=live)
+        pos = ties.cumsum(dim=1) - 1
+        action = (ties & (pos == idx[:, None])).to(torch.int64).argmax(dim=1)
+        node = torch.where(live, ch.gather(1, action[:, None]).squeeze(1), node)
+        actions.append(torch.where(live, action, -1))
+    actions = torch.stack(actions, dim=1)
+    return actions, (actions >= 0).sum(dim=1), stream
 
 
-def opd_plan_parity(*args, **kwargs):
-    raise NotImplementedError(
-        "opd_plan_parity is not yet ported to rl_agents_torch: it waits for the parity modes "
-        "(utils/pcg64.py; ROADMAP.md, 'Parity modes')")
+def opd_plan_parity(env: FunctionalEnv, params, states0, stream, inc, num_actions: int,
+                    expansions: int, gamma: float, terminal_reward: float = 0.0,
+                    plan_capacity: int = 32, device="cuda"):
+    """``opd_plan`` with the reference's own tie-breaking draws: the same
+    expansions (deterministic, the earliest-created optimistic leaf) and the
+    plan's ties broken on the PCG64 stream of each tree, bit-exact with the
+    reference at a fixed seed. ``stream, inc = pcg64_init(seeds)`` mirrors
+    the reference's ``planner.seed(seed)`` (gymnasium np_random ->
+    ``Generator(PCG64(seed))``). Returns ``(actions [B, P], lengths [B],
+    OPDTree, stream)``."""
+    device = resolve_device(device)
+    params = params_to(params, device)
+    states0 = params_to(states0, device)
+    capacity = 1 + expansions * num_actions
+    tree = _init_tree(env, states0, capacity, num_actions)
+    scalars = _scalars(gamma, terminal_reward, capacity, device)
+    tree = _expansion_rounds(env, params, tree, expansions, scalars, num_actions)
+    actions, lengths, stream = _greedy_plan_pcg64(tree, stream, inc, plan_capacity)
+    return actions, lengths, tree, stream
 
 
 def _expansion_rounds(env, params, tree: OPDTree, expansions: int, scalars, num_actions: int,

@@ -361,9 +361,6 @@ class MCTSAgent(AbstractTreeSearchAgent):
         return config
 
     def make_planner(self):
-        if self.config.get("closed_loop"):
-            raise NotImplementedError(
-                "closed_loop MCTS (mcts_closed_loop) is not yet ported to rl_agents_torch")
         self.carried_tree = None  # arena carried across steps ("prior" strategy)
         if not self.config.get("horizon"):
             self.config["episodes"], self.config["horizon"] = allocation(
@@ -378,6 +375,19 @@ class MCTSAgent(AbstractTreeSearchAgent):
 
     def planner_plan(self, env, observation):
         functional = env.functional
+        if self.config.get("closed_loop"):
+            from rl_agents_torch.agents.tree_search.mcts_closed_loop import (
+                mcts_closed_loop_plan,
+            )
+
+            action, tree = mcts_closed_loop_plan(
+                functional, env.params, env.state, self.generator, self.prior_probs,
+                self.rollout_probs, num_actions=functional.action_space.n,
+                episodes=int(self.config["episodes"]), horizon=int(self.config["horizon"]),
+                gamma=float(self.config["gamma"]), temperature=float(self.config["temperature"]),
+                width=int(self.config.get("max_next_states_count", 8)), device=self.device)
+            self.last_plan_data = tree
+            return [int(action[0])]
         kwargs = dict(num_actions=functional.action_space.n,
                       episodes=int(self.config["episodes"]),
                       horizon=int(self.config["horizon"]),
@@ -396,7 +406,7 @@ class MCTSAgent(AbstractTreeSearchAgent):
         return self.get_plan_list(actions[0], lengths[0])
 
     def planner_step_tree(self, actions):
-        if self.config["step_strategy"] != "prior":
+        if self.config["step_strategy"] != "prior" or self.config.get("closed_loop"):
             return
         tree = self.last_plan_data
         if tree is None or not actions:

@@ -138,11 +138,17 @@ def _rows(params: MDPParams, s):
     return ()
 
 
-def params_from_config(config: dict, device="cuda") -> tuple[FiniteMDPEnv, MDPParams]:
+def params_from_config(config: dict, device="cuda",
+                       dtype=torch.float32) -> tuple[FiniteMDPEnv, MDPParams]:
+    """The env and its params from an inline config. ``dtype`` is the float
+    type of the rewards and transition probabilities: float32 as the JAX
+    package keeps them, or float64 for a model whose rewards are the
+    config's Python floats."""
     device = resolve_device(device)
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
     mode = config.get("mode", "deterministic")
     transition = np.asarray(config["transition"])
-    reward = np.asarray(config["reward"], dtype=np.float32)
+    reward = np.asarray(config["reward"], dtype=np_dtype)
     S, A = reward.shape
     # clamp to S states: the reference corpus's env_bandit.json declares one
     # state but a per-action-length terminal list
@@ -156,10 +162,10 @@ def params_from_config(config: dict, device="cuda") -> tuple[FiniteMDPEnv, MDPPa
         transition = transition.astype(np.int64)
         nxt = np.zeros((), np.int64)
     elif mode == "stochastic":
-        transition = transition.astype(np.float32)
+        transition = transition.astype(np_dtype)
         nxt = np.zeros((), np.int64)
     else:
-        transition = transition.astype(np.float32)
+        transition = transition.astype(np_dtype)
         nxt = np.asarray(config["next"], dtype=np.int64)
     params = MDPParams(
         transition=torch.as_tensor(transition, device=device),
@@ -224,10 +230,12 @@ class MDPAccessor:
         return int(self.env.next_state(self.params, index[:1], index[1:], generator))
 
 
-def make(config: dict | None = None, device="cuda") -> EnvHandle:
+def make(config: dict | None = None, device="cuda", dtype=torch.float32) -> EnvHandle:
+    """A finite-MDP handle: the inline config's MDP (its rewards in ``dtype``),
+    a garnet, or the default loop MDP."""
     config = dict(config or {})
     if "transition" in config:
-        env, params = params_from_config(config, device="cpu")
+        env, params = params_from_config(config, device="cpu", dtype=dtype)
     elif config.get("generator") == "garnet":
         # drawn on the CPU, so that one seed gives one MDP on every device; the
         # episode length is the config's (the JAX package's garnet keeps 100)

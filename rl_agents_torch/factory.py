@@ -21,7 +21,9 @@ logger = logging.getLogger(__name__)
 
 # name -> "module:Class", imported on first use
 AGENT_REGISTRY: Dict[str, str] = {
+    "BRUEAgent": "rl_agents_torch.agents.tree_search.brue:BRUEAgent",
     "BFTQAgent": "rl_agents_torch.agents.budgeted_ftq.agent:BFTQAgent",
+    "CEMAgent": "rl_agents_torch.agents.cem:CEMAgent",
     "DQNAgent": "rl_agents_torch.agents.dqn.agent:DQNAgent",
     "DeterministicPlannerAgent":
         "rl_agents_torch.agents.tree_search.deterministic:DeterministicPlannerAgent",
@@ -29,15 +31,20 @@ AGENT_REGISTRY: Dict[str, str] = {
     "FTQAgent": "rl_agents_torch.agents.fitted_q:FTQAgent",
     "GraphBasedPlannerAgent": "rl_agents_torch.agents.tree_search.graph_based:GraphBasedPlannerAgent",
     "IntervalRobustPlannerAgent": "rl_agents_torch.agents.robust.robust:IntervalRobustPlannerAgent",
+    "LatentCEMAgent": "rl_agents_torch.agents.cem:LatentCEMAgent",
     "MCTSAgent": "rl_agents_torch.agents.tree_search.mcts:MCTSAgent",
+    "MCTSDPWAgent": "rl_agents_torch.agents.tree_search.mcts_dpw:MCTSDPWAgent",
     "MCTSWithPriorPolicyAgent":
         "rl_agents_torch.agents.tree_search.mcts_with_prior:MCTSWithPriorPolicyAgent",
     "MDPGapEAgent": "rl_agents_torch.agents.tree_search.mdp_gape:MDPGapEAgent",
     "OLOPAgent": "rl_agents_torch.agents.tree_search.olop:OLOPAgent",
     "OpenLoopAgent": "rl_agents_torch.agents.simple:OpenLoopAgent",
+    "PlaTyPOOSAgent": "rl_agents_torch.agents.tree_search.platypoos:PlaTyPOOSAgent",
     "RandomUniformAgent": "rl_agents_torch.agents.simple:RandomUniformAgent",
     "RobustValueIterationAgent":
         "rl_agents_torch.agents.dynamic_programming.robust_value_iteration:RobustValueIterationAgent",
+    "SparseSamplingAgent":
+        "rl_agents_torch.agents.tree_search.sparse_sampling:SparseSamplingAgent",
     "StateAwarePlannerAgent": "rl_agents_torch.agents.tree_search.state_aware:StateAwarePlannerAgent",
     "StochasticGraphBasedPlannerAgent":
         "rl_agents_torch.agents.tree_search.graph_based_stochastic:StochasticGraphBasedPlannerAgent",

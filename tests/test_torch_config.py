@@ -72,8 +72,11 @@ def test_agent_class_resolves_reference_paths_and_refuses_the_rest():
     assert dqn.__module__ == "rl_agents_torch.agents.dqn.agent"
     ftq = agent_class("<class 'rl_agents.agents.fitted_q.pytorch.FTQAgent'>")
     assert ftq.__module__ == "rl_agents_torch.agents.fitted_q"
+    cem = agent_class("<class 'rl_agents.agents.cross_entropy_method.cem.CEMAgent'>")
+    assert cem is agent_class("CEMAgent")
+    assert cem.__module__ == "rl_agents_torch.agents.cem"
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        agent_class("CEMAgent")
+        agent_class("LinearFeedbackAgent")
 
 
 @pytest.mark.parametrize("path,module", [

@@ -162,7 +162,10 @@ def test_entry_points_raise_without_a_card():
                        {"mode": "deterministic", "transition": [[0]], "reward": [[1.0]]}]},
                    {"__class__": "RandomUniformAgent"}, {"__class__": "OpenLoopAgent"},
                    {"__class__": "MCTSWithPriorPolicyAgent", "budget": 10},
-                   {"__class__": "FTQAgent"}, {"__class__": "BFTQAgent"}):
+                   {"__class__": "FTQAgent"}, {"__class__": "BFTQAgent"},
+                   {"__class__": "MCTSDPWAgent"}, {"__class__": "BRUEAgent"},
+                   {"__class__": "SparseSamplingAgent"}, {"__class__": "PlaTyPOOSAgent"},
+                   {"__class__": "CEMAgent"}, {"__class__": "LatentCEMAgent"}):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             load_agent(config, mdp if "Value" in config["__class__"] else env)
     from rl_agents_torch.agents.tree_search.mcts_with_prior import mcts_prior_plan, root_prior
@@ -181,23 +184,29 @@ def test_agents_not_yet_ported_name_what_is_missing():
     from rl_agents_torch.factory import load_agent, load_environment
 
     env = load_environment({"id": "cartpole"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="mcts_closed_loop"):
-        load_agent({"__class__": "MCTSAgent", "closed_loop": True}, env, device="cpu")
-    for name in ("BRUEAgent", "CEMAgent", "LinearFeedbackAgent", "RobustEPCAgent"):
+    for name in ("LinearFeedbackAgent", "RobustEPCAgent"):
         with pytest.raises(NotImplementedError, match=name):
             load_agent({"__class__": name}, env, device="cpu")
     for env_id in ("gridenv-v0", "sailing-8-v0", "parking-v0"):
         with pytest.raises(NotImplementedError, match=env_id):
             load_environment({"id": env_id}, device="cpu")
-    # ported since: the robust planners and the highway family
+    # ported since: the robust planners, the highway family, closed-loop MCTS,
+    # BRUE, CEM and the OPD parity planner
+    obs = env.reset(seed=0)[0]
     for name in ("DiscreteRobustPlannerAgent", "IntervalRobustPlannerAgent"):
-        assert load_agent({"__class__": name, "budget": 6}, env, device="cpu").act(
-            env.reset(seed=0)[0]) in (0, 1)
+        assert load_agent({"__class__": name, "budget": 6}, env, device="cpu").act(obs) in (0, 1)
     assert load_environment({"id": "highway-v0"}, device="cpu").functional.vehicles == 15
+    for config in ({"__class__": "MCTSAgent", "closed_loop": True, "budget": 20},
+                   {"__class__": "BRUEAgent", "budget": 20}, {"__class__": "CEMAgent"}):
+        assert load_agent(config, env, device="cpu").act(obs) in (0, 1)
     from rl_agents_torch.agents.tree_search.deterministic import opd_plan_parity
+    from rl_agents_torch.utils.pcg64 import pcg64_init
 
-    with pytest.raises(NotImplementedError, match="opd_plan_parity"):
-        opd_plan_parity()
+    stream, inc = pcg64_init([0], device="cpu")
+    actions, lengths, _, _ = opd_plan_parity(env.functional, env.params, env.state, stream, inc,
+                                             num_actions=2, expansions=4, gamma=0.9,
+                                             device="cpu")
+    assert int(lengths[0]) >= 1 and int(actions[0, 0]) in (0, 1)
 
 
 def test_the_graph_and_tree_planners_and_sailing_ids_are_registered():

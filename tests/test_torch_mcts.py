@@ -321,6 +321,8 @@ def test_agent_defaults_and_closed_loop_message():
     assert agent.config["temperature"] == pytest.approx(2 / (1 - 0.9))
     agent.seed(0)
     assert agent.act(None) in (0, 1)
-    with pytest.raises(NotImplementedError, match="mcts_closed_loop"):
-        torch_factory.load_agent({"__class__": "MCTSAgent", "closed_loop": True}, env_t,
-                                 device="cpu")
+    # closed loop (tests/test_torch_mcts_dpw.py holds it against JAX)
+    agent = torch_factory.load_agent({"__class__": "MCTSAgent", "closed_loop": True,
+                                      "budget": 20}, env_t, device="cpu")
+    assert agent.act(None) in (0, 1)
+    assert int(agent.last_plan_data.d_count[0, 0]) == agent.config["episodes"]

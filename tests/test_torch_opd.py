@@ -356,10 +356,20 @@ def test_state_aware_agent_aggregates():
 
 
 def test_parity_planner_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="opd_plan_parity.*Parity modes"):
-        td.opd_plan_parity()
-    with pytest.raises(NotImplementedError, match="_greedy_plan_pcg64"):
-        td._greedy_plan_pcg64()
+    """The parity planner (tests/test_torch_parity.py holds it
+    against JAX), expands the tree that ``opd_plan`` expands; ``opd_plan``
+    itself still refuses to plan without a generator or noise."""
+    from rl_agents_torch.utils.pcg64 import pcg64_init
+
+    (_, _, states_j), (env_t, params_t, state_cls), plan = CASES["aggregating_mdp"]()
+    states_t = from_numpy(state_cls, states_j, device="cpu")
+    stream, inc = pcg64_init(list(range(states_t[0].shape[0])), device="cpu")
+    _, lengths, tree, _ = td.opd_plan_parity(env_t, params_t, states_t, stream, inc,
+                                             device="cpu", **plan)
+    _, _, want = td.opd_plan(env_t, params_t, states_t, torch.Generator().manual_seed(0),
+                             device="cpu", **plan)
+    assert torch.equal(tree.count, want.count) and torch.equal(tree.children, want.children)
+    assert (lengths >= 1).all()
     with pytest.raises(ValueError, match="generator or noise"):
         (_, _, states_j), (env_t, params_t, state_cls), plan = CASES["aggregating_mdp"]()
         td.opd_plan(env_t, params_t, from_numpy(state_cls, states_j, device="cpu"), None,
