@@ -151,11 +151,33 @@ non-zero without its final line:
     doubles, bit-equal to numpy's ``Generator(PCG64)``; the MCTS, OLOP and
     OPD parity plans in float64 for 16 seeds against the same plans on the
     CPU (plans, counts and stream digits equal);
-32. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
-    last line. The DQN paths and the paths of phases 19-31 launch no hand
-    kernel: their products and softmax are ``torch.matmul`` / ``softmax``,
-    and the hull is tensor functions, as the JAX package computes them
-    outside any Pallas kernel.
+32. KL-OLOP on ``MiniGrid-Empty-16x16-v0`` (``GridWorld/empty.json``) at
+    ``GridWorld/agents/kl-olop.json``'s 55 episodes x horizon 9, 4096 trees
+    from seeded cells and headings, one ``kl_bound_indexed_`` launch per
+    episode, the first 64 trees against the CPU plan under the same draws
+    (phase 3 also holds the kernel against its plain version on three
+    episodes' inputs of this plan); ``kl-olop.json`` on ``empty.json`` and
+    ``uct.json`` on ``collect_stochastic.json``, 3 steps each;
+33. MDP-GapE on ``DummyEnv/gridenv_stoch.json`` at ``DummyEnv/agents/
+    mdp-gape.json``'s 35 (+1) x 5, 4096 trees, 360 dense ``kl_bound``
+    launches a plan, the first 64 trees against the CPU plan under the same
+    draws (the grid's drops injected); ``mdp-gape.json`` on the grid and
+    ``DummyEnv/agents/{kl-olop,brue}.json`` on ``dynamics.json``, 3 steps
+    each;
+34. ``MountainCarEnv/MCTSAgent.json``, ``Pendulum/{OLOPAgent,cem}.json`` and
+    ``ParkingEnv/cem.json``, 3 steps each;
+35. robust control: the interval predictor over 4096 interval states for 40
+    steps against the CPU; ``ObstacleEnv/RobustEPCAgent.json`` for 3 steps,
+    each action against a CPU agent's; ``ConstrainedEPCAgent`` at
+    tests/agents/test_robust.py's configuration, 3 plans; ``LaneKeepingEnv/
+    agents/linear.json`` for 3 steps; the LMI solves of tests/agents/
+    test_lmi.py's systems on the card and the CPU (verdicts equal, times)
+    and the host synchronisations of one descent step;
+36. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
+    last line. The DQN paths, the paths of phases 19-31 and the robust
+    control of phase 35 launch no hand kernel: their products, softmax,
+    hull, interval predictor and LMI descent are tensor functions, as the
+    JAX package computes them outside any Pallas kernel.
 
 Every path is driven with every kernel launch counter set to 0 just before
 and read just after.
@@ -659,6 +681,21 @@ def check_kl_bound_indexed(dev) -> dict:
             if not (err <= KL_TOLERANCE and untouched):
                 raise AssertionError(f"kl_bound_indexed_ disagrees with its plain version: "
                                      f"{err!r}, off-path unchanged: {untouched}")
+            worst = max(worst, err)
+
+    # the inputs of three episodes of a 4096-tree KL-OLOP plan on MiniGrid
+    # (slice 9's path; the grid's terminal rewards are zeroed, so every sum is 0)
+    for episode, (inputs, kwargs) in zip(MG_RECORDED, minigrid_kl_calls(dev)):
+        for iters in (24, NEWTON_MAX_ITERATIONS):
+            args = dict(kwargs, iters=iters)
+            got = kl_bound_indexed_(inputs[0].clone(), *inputs[1:], **args)
+            want = kl_bound_indexed_torch_(inputs[0].clone(), *inputs[1:], **args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            print(f"kl_bound_indexed_ MiniGrid OLOP episode {episode} arena "
+                  f"{tuple(inputs[1].shape)} path {tuple(inputs[3].shape)} iters={iters}: "
+                  f"max|kernel - plain| = {err!r}")
+            expect(err <= KL_TOLERANCE, f"kl_bound_indexed_ disagrees on MiniGrid: {err!r}")
             worst = max(worst, err)
 
     out = base.clone()
@@ -2490,19 +2527,22 @@ def check_brue_paths(dev) -> dict:
               gamma=config["gamma"], width=8)
     states0 = states(dev, TREES)
     generator = torch.Generator(device=dev).manual_seed(0)
-    plan = lambda: brue_plan_batch(env, params, states0, generator, device=dev, **kw)
-    short = lambda: brue_plan_batch(env, params, states0, generator, device=dev,
-                                    **dict(kw, budget=1))
-    result = slice8_batch_path(f"brue_plan_batch B={TREES} budget={config['budget']} "
-                               f"horizon={horizon}", plan, TREES * config["budget"],
-                               "budgeted env-steps", profiled=short, count=1)
-    print("  the profiled plan ran one episode (budget 1)")
     g = torch.Generator(device=dev).manual_seed(8)
     I, B, H, W, A = BRUE_CHAIN, TREES, horizon, 8, SAILING_ACTIONS
     noise = BRUENoise(rollout_actions=torch.randint(0, A, (I, B, H), generator=g, device=dev),
                       rollout_env=uniform((I, B, H), g, dev),
                       estimate=gumbel((I, B, H, W), g, dev), final=gumbel((I, B, A), g, dev))
-    got = tree_fields(*brue_plan_batch(env, params, states0, None, noise=noise, device=dev, **kw))
+    # the timed plan is the one held against the CPU
+    outs = []
+    short = lambda: brue_plan_batch(env, params, states0, generator, device=dev,
+                                    **dict(kw, budget=1))
+    result = slice8_batch_path(
+        f"brue_plan_batch B={TREES} budget={config['budget']} horizon={horizon}",
+        lambda: outs.append(brue_plan_batch(env, params, states0, None, noise=noise, device=dev,
+                                            **kw)),
+        TREES * config["budget"], "budgeted env-steps", profiled=short, count=1)
+    print("  the profiled plan ran one episode (budget 1)")
+    got = tree_fields(*outs[0])
     expect(np.isfinite(got["c_value"]).all() and got["c_count"][:, 0].sum() > 0,
            "BRUE plan: invalid values")
     started = time.time()
@@ -2774,6 +2814,401 @@ def check_parity_paths(dev) -> dict:
     return {"launches": launches, "pcg64_raw_s": seconds, "parity_plan_s": plans}
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the remaining envs and robust control. The KL kernel runs in both
+# forms on the new envs' planners; the envs, the interval predictor and the
+# LMI solver are tensor functions, as the JAX package computes them outside
+# any Pallas kernel.
+# ---------------------------------------------------------------------------
+
+SLICE9_AGENT_STEPS = 3
+GRIDWORLD = CONFIGS / "GridWorld"
+DUMMY = CONFIGS / "DummyEnv"
+# KL-OLOP at GridWorld/agents/kl-olop.json: budget 500 at gamma 0.8 is 55
+# episodes x horizon 9 (its max_depth 4 is read by neither package), the
+# default threshold 4 log(time) (its "c" is no threshold), uniform continuation
+MG_OLOP = dict(num_actions=3, episodes=55, horizon=9, gamma=0.8, threshold_coeff=4.0,
+               continuation_uniform=True)
+MG_RECORDED = (0, 27, 54)  # episodes whose kl_bound_indexed_ inputs phase 3 checks
+MG_PROFILED = 5  # episodes of the profiled plan
+# MDP-GapE at DummyEnv/agents/mdp-gape.json on gridenv_stoch.json: budget 200
+# at gamma 0.7 is 35 episodes x horizon 5, two next-state slots, confidence 1
+GRID_GAPE = dict(num_actions=4, episodes=35, horizon=5, gamma=0.7, accuracy=0.0, confidence=1.0,
+                 transition_threshold_coeff=0.1, width=2)
+GRID_GAPE_KL_LAUNCHES = 2 * (GRID_GAPE["episodes"] + 1) * GRID_GAPE["horizon"]
+DUMMY_OLOP_EPISODES = 35  # DummyEnv/agents/kl-olop.json: budget 200 at gamma 0.7
+PENDULUM_OLOP_EPISODES = 15  # Pendulum/OLOPAgent.json: budget 200 at gamma 0.9
+LPV_STEPS = 40
+LPV_TOLERANCE = 1e-6  # relative to the interval's largest entry
+# the robust fork's polytope of ObstacleEnv/RobustEPCAgent.json before any data
+LPV_SYSTEM = dict(a0=[[0.0, 1.0], [0.0, 0.0]], da=[[[0.0, 0.0], [0.0, -1.0]],
+                                                     [[0.0, 0.0], [0.0, 1.0]]],
+                  b=[[0.0], [1.0]], d=[[0.0], [1.0]], omega=[[0.01], [0.01]])
+# tests/agents/test_lmi.py's systems (its fourth case, the IntervalFeedbackAgent,
+# synthesizes the same stable system) and tests/agents/test_robust.py:133-156's agent
+LMI_STABLE = dict(A0=[[-1.0, 1.0], [0.0, -2.0]], dA=[[[0.0, 0.0], [0.0, 0.1]]], B=[[0.0], [1.0]])
+LMI_UNSTABLE = dict(A0=[[0.0, 1.0], [0.0, 0.0]], dA=[[[0.0, 0.0], [0.0, 0.1]]],
+                    B=[[0.0], [1.0]])
+LMI_CASES = (("analysis, stable", LMI_STABLE, False, 8000),
+             ("analysis, unstable", LMI_UNSTABLE, False, 2000),
+             ("synthesis, stable", LMI_STABLE, True, 8000))
+EPC_TEST = {"A": [[0.0, 1.0], [0.0, 0.0]], "B": [[0.0], [1.0]], "D": [[0.0], [1.0]],
+            "phi": [[[0.0, 0.0], [0.0, -1.0]]], "sigma": [[1.0, 0.0], [0.0, 1.0]],
+            "omega": [[0.0], [0.0]], "parameter_box": [[0.0], [1.0]], "noise_bound": 0.1,
+            "sub_agent": {"__class__": "DeterministicPlannerAgent", "budget": 10, "gamma": 0.9}}
+
+
+def minigrid_case(dev):
+    """``MiniGrid-Empty-16x16-v0`` (``GridWorld/empty.json``) on ``dev``,
+    ``TREES`` start cells and headings from a seed, and the plan's injected
+    draws: the continuation actions and the env's drop uniforms (the grid
+    drops nothing: its stochasticity is 0)."""
+    from rl_agents_torch.envs.minigrid import MiniGridState, make
+
+    env = make(json.loads((GRIDWORLD / "empty.json").read_text()), device=CPU).functional
+    rng = np.random.default_rng(5)
+    pos = rng.integers(1, env.size - 1, (TREES, 2))
+    dirs = rng.integers(0, 4, TREES)
+    shape = (MG_OLOP["episodes"], MG_OLOP["horizon"], TREES)
+    actions, drops = rng.integers(0, 3, shape), rng.random(shape).astype(np.float32)
+
+    def states(device, n):
+        return MiniGridState(torch.tensor(pos[:n], device=device),
+                             torch.tensor(dirs[:n], device=device),
+                             torch.zeros((n, 1), dtype=torch.bool, device=device),
+                             torch.zeros(n, dtype=torch.int64, device=device))
+
+    def draws(device, n):
+        return dict(random_actions=torch.tensor(actions[:, :, :n], device=device),
+                    env_noise=torch.tensor(drops[:, :, :n], device=device))
+
+    return env, env.default_params(dev), states, draws
+
+
+def minigrid_kl_calls(dev) -> list:
+    """``[((out, sum, count, nodes, threshold), kwargs), ...]``: the inputs of
+    the ``kl_bound_indexed_`` launches of episodes ``MG_RECORDED`` of one
+    4096-tree KL-OLOP plan on MiniGrid, as the planner passed them."""
+    from rl_agents_torch.agents.tree_search import olop
+
+    env, params, states, draws = minigrid_case(dev)
+    calls, seen, inner = [], [0], olop.kl_bound_indexed_
+
+    def recording(out, _sum, count, nodes, threshold, **kwargs):
+        if seen[0] in MG_RECORDED:
+            calls.append(((out.clone(), _sum.clone(), count.clone(), nodes.clone(),
+                           threshold.clone()), kwargs))
+        seen[0] += 1
+        return inner(out, _sum, count, nodes, threshold, **kwargs)
+
+    olop.kl_bound_indexed_ = recording
+    try:
+        olop.olop_plan(env, params, states(dev, TREES), device=dev, **draws(dev, TREES),
+                       **MG_OLOP)
+    finally:
+        olop.kl_bound_indexed_ = inner
+    expect(seen[0] == MG_OLOP["episodes"], f"a MiniGrid plan made {seen[0]} indexed KL calls")
+    return calls
+
+
+def slice9_env(path: Path, steps: int = SLICE9_AGENT_STEPS) -> dict:
+    """An env config of the corpus, its episodes cut to ``steps``."""
+    return dict(json.loads(path.read_text()), max_episode_steps=steps)
+
+
+def zero_kl_agent(dev, name: str, env_config, agent_config) -> dict:
+    """A corpus agent that launches no KL kernel, one episode on the card."""
+    from rl_agents_torch.factory import load_agent, load_environment
+
+    env = load_environment(env_config, device=dev)
+    return timed_agent_episode(dev, name, env, load_agent(agent_config, env, device=dev))
+
+
+def check_minigrid_paths(dev) -> dict:
+    """KL-OLOP on ``MiniGrid-Empty-16x16-v0`` at ``kl-olop.json``'s 55 x 9, 4096
+    trees, one ``kl_bound_indexed_`` launch per episode, one plan timed and
+    its first 64 trees held against the CPU plan under the same draws, a
+    5-episode plan profiled; then
+    ``kl-olop.json`` on ``empty.json`` and ``uct.json`` on
+    ``collect_stochastic.json``, 3 steps each."""
+    from rl_agents_torch.agents.tree_search.batch import olop_plan_batch
+
+    env, params, states, draws = minigrid_case(dev)
+    episodes, horizon = MG_OLOP["episodes"], MG_OLOP["horizon"]
+    states0, noise = states(dev, TREES), draws(dev, TREES)
+    plan = lambda: olop_plan_batch(env, params, states0, device=dev, **noise, **MG_OLOP)
+    reset_launches()
+    outs = []
+    times = timed_plans(lambda: outs.append(plan()), 1)  # the kernels are warm from phase 14
+    launches = read_launches()
+    got = plan_fields(*outs[0])
+    want = plan_fields(*olop_plan_batch(env, env.default_params(CPU), states(CPU, CPU_SUBSET),
+                                        device=CPU, **draws(CPU, CPU_SUBSET), **MG_OLOP))
+    same_on_cpu("olop_plan_batch on MiniGrid", got, want,
+                ("actions", "lengths", "parent", "count", "done"), ("value_upper", "mu_ucb"),
+                CPU_SUBSET)
+    expect(got["done"].any() and np.isfinite(got["value_upper"]).all(),
+           "MiniGrid plan: no path reached the goal, or a bound is not finite")
+    expect_launches("KL-OLOP on MiniGrid, 1 plan", launches, 0, episodes)
+    ms = report_plans(f"olop_plan_batch on MiniGrid-Empty-16x16 B={TREES} episodes={episodes} "
+                      f"horizon={horizon}", times, TREES * episodes * horizon, "env-steps")
+    # a plan of MG_PROFILED episodes: reading a trace takes time in proportion
+    # to its kernels (the wrapper's counter above holds the launches)
+    short = dict(MG_OLOP, episodes=MG_PROFILED)
+    short_draws = {k: v[:MG_PROFILED] for k, v in noise.items()}
+    prof = profile_plan(lambda: olop_plan_batch(env, params, states0, device=dev, **short_draws,
+                                                **short), host_events=False)
+    result = {"olop_minigrid_batch_plans": {"launches": launches, "ms": ms,
+                                            "kernels_per_episode": prof["kernels"] / MG_PROFILED,
+                                            "busy_share": prof["busy_share"]}}
+    result["kl_olop_minigrid_agent"] = {"launches": check_agent_path(
+        dev, "OLOPAgent (GridWorld/agents/kl-olop.json)", slice9_env(GRIDWORLD / "empty.json"),
+        GRIDWORLD / "agents" / "kl-olop.json", 0, episodes)}
+    result["uct_minigrid_agent"] = zero_kl_agent(
+        dev, "MCTSAgent (GridWorld/agents/uct.json) on collect_stochastic.json",
+        slice9_env(GRIDWORLD / "collect_stochastic.json"), GRIDWORLD / "agents" / "uct.json")
+    return result
+
+
+def check_grid_and_dynamics_paths(dev) -> dict:
+    """MDP-GapE on ``DummyEnv/gridenv_stoch.json`` at ``mdp-gape.json``'s 35 x
+    5, 4096 trees, two dense ``kl_bound`` launches per (episode, depth) step,
+    the first 64 trees against the CPU plan under the same draws (the grid's
+    drop uniforms injected); then ``mdp-gape.json`` on the grid and
+    ``kl-olop.json`` and ``brue.json`` on ``dynamics.json``, 3 steps each."""
+    from rl_agents_torch.agents.tree_search.batch import mdp_gape_plan_batch
+    from rl_agents_torch.envs.gridenv import GridState, make_grid
+    from rl_agents_torch.utils.noise import gumbel, uniform
+
+    grid = json.loads((DUMMY / "gridenv_stoch.json").read_text())
+    env = make_grid(grid, device=CPU).functional
+    params = env.default_params(dev)
+    steps = (GRID_GAPE["episodes"] + 1, GRID_GAPE["horizon"], TREES)
+    g = torch.Generator(device=dev).manual_seed(13)
+    noise, env_noise = gumbel(steps + (4,), g, dev), uniform(steps, g, dev)
+    start = np.random.default_rng(9).integers(-5, 6, (TREES, 2)).astype(np.float32)
+
+    def states(device, n):
+        return GridState(torch.tensor(start[:n], device=device),
+                         torch.zeros(n, dtype=torch.int64, device=device))
+
+    def fields(best, used, tree):
+        return dict(tree_fields(best, tree), used=used.cpu().numpy())
+
+    states0 = states(dev, TREES)
+    plan = lambda: mdp_gape_plan_batch(env, params, states0, noise=noise, env_noise=env_noise,
+                                       device=dev, **GRID_GAPE)
+    reset_launches()
+    reset_newton()
+    outs = []
+    times = timed_plans(lambda: outs.append(plan()), 1)  # the kernels are warm from phase 8
+    launches = read_launches()
+    newton = newton_line()
+    got = fields(*outs[0])
+    want = fields(*mdp_gape_plan_batch(env, env.default_params(CPU), states(CPU, CPU_SUBSET),
+                                       noise=noise[:, :, :CPU_SUBSET].cpu(),
+                                       env_noise=env_noise[:, :, :CPU_SUBSET].cpu(), device=CPU,
+                                       **GRID_GAPE))
+    same_on_cpu("mdp_gape_plan_batch on gridenv_stoch", got, want,
+                ("actions", "used", "d_count", "d_children", "c_count", "c_children",
+                 "c_n_children", "c_child_keys"),
+                ("d_mu_ucb", "d_mu_lcb", "d_value_upper", "d_value_lower"), CPU_SUBSET)
+    expect_launches("MDP-GapE on gridenv_stoch, 1 plan", launches, GRID_GAPE_KL_LAUNCHES, 0)
+    ms = report_plans(f"mdp_gape_plan_batch on gridenv_stoch B={TREES} "
+                      f"episodes={GRID_GAPE['episodes']}+1 horizon={GRID_GAPE['horizon']}",
+                      times, TREES * steps[0] * steps[1], "env-steps")
+    print(f"  {newton}")
+    result = {"mdp_gape_grid_batch_plans": {"launches": launches, "ms": ms}}
+    result["mdp_gape_grid_agent"] = {"launches": check_agent_path(
+        dev, "MDPGapEAgent (DummyEnv/agents/mdp-gape.json) on gridenv_stoch.json",
+        slice9_env(DUMMY / "gridenv_stoch.json"), DUMMY / "agents" / "mdp-gape.json",
+        GRID_GAPE_KL_LAUNCHES, 0)}
+    result["kl_olop_dynamics_agent"] = {"launches": check_agent_path(
+        dev, "OLOPAgent (DummyEnv/agents/kl-olop.json) on dynamics.json",
+        slice9_env(DUMMY / "dynamics.json"), DUMMY / "agents" / "kl-olop.json", 0,
+        DUMMY_OLOP_EPISODES)}
+    result["brue_dynamics_agent"] = zero_kl_agent(
+        dev, "BRUEAgent (DummyEnv/agents/brue.json) on dynamics.json",
+        slice9_env(DUMMY / "dynamics.json"), DUMMY / "agents" / "brue.json")
+    return result
+
+
+def check_classic_and_parking_paths(dev) -> dict:
+    """``MountainCarEnv/MCTSAgent.json``, ``Pendulum/OLOPAgent.json`` (one
+    ``kl_bound_indexed_`` launch per planning episode), ``Pendulum/cem.json``
+    and ``ParkingEnv/cem.json``, 3 steps each on their corpus envs."""
+    result = {"mcts_mountaincar_agent": zero_kl_agent(
+        dev, "MCTSAgent (MountainCarEnv/MCTSAgent.json)",
+        slice9_env(CONFIGS / "MountainCarEnv" / "env.json"),
+        CONFIGS / "MountainCarEnv" / "MCTSAgent.json")}
+    pendulum = slice9_env(CONFIGS / "Pendulum" / "env.json")
+    result["olop_pendulum_agent"] = {"launches": check_agent_path(
+        dev, "OLOPAgent (Pendulum/OLOPAgent.json)", pendulum,
+        CONFIGS / "Pendulum" / "OLOPAgent.json", 0, PENDULUM_OLOP_EPISODES)}
+    result["cem_pendulum_agent"] = zero_kl_agent(dev, "CEMAgent (Pendulum/cem.json)", pendulum,
+                                                 CONFIGS / "Pendulum" / "cem.json")
+    result["cem_parking_agent"] = zero_kl_agent(
+        dev, "CEMAgent (ParkingEnv/cem.json)", slice9_env(CONFIGS / "ParkingEnv" / "env.json"),
+        CONFIGS / "ParkingEnv" / "cem.json")
+    return result
+
+
+def lmi_step_syncs(dev) -> int:
+    """Host synchronisations of one step of the LMI descent on the card, as
+    ``torch.cuda.set_sync_debug_mode`` reports them: a CUDA graph can hold a
+    chunk of steps only if there are none."""
+    import warnings
+
+    from rl_agents_torch.agents.control import extended_matrices
+    from rl_agents_torch.utils import lmi
+
+    matrix, constraints, theta0 = lmi.interval_lmi_problem(*extended_matrices(**LMI_STABLE),
+                                                           True, device=dev)
+    affine = lmi.affine_matrix(matrix, theta0)
+    x = lmi.flatten(affine, theta0)
+    lmi.penalty_and_grad(affine, constraints, x, 1e-2, 1e-3, 1e-6)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            lmi.penalty_and_grad(affine, constraints, x, 1e-2, 1e-3, 1e-6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    for w in syncs[:3]:
+        print(f"  sync: {str(w.message)[:120]}")
+    return len(syncs)
+
+
+def check_robust_control_paths(dev) -> dict:
+    """The interval predictor over 4096 interval states for 40 steps on the
+    card against the CPU; ``ObstacleEnv/RobustEPCAgent.json`` on
+    ``ObstacleEnv/env.json`` for 3 steps, each action against a CPU agent's;
+    ``ConstrainedEPCAgent`` at tests/agents/test_robust.py's configuration,
+    3 plans with their synthesis timed; ``LaneKeepingEnv/agents/linear.json``
+    for 3 steps; the LMI solves of tests/agents/test_lmi.py's systems, their
+    verdicts and times on the card against the CPU's, and the host
+    synchronisations of one descent step."""
+    from rl_agents_torch.agents.control import extended_matrices
+    from rl_agents_torch.agents.robust.constrained_epc import ConstrainedEPCAgent
+    from rl_agents_torch.factory import load_agent, load_environment
+    from rl_agents_torch.robust.interval import lpv_step, make_lpv
+    from rl_agents_torch.utils import lmi
+
+    rng = np.random.default_rng(21)
+    x0 = rng.normal(size=(TREES, 2)) * 0.5
+    controls = rng.choice([-1.0, 1.0], (LPV_STEPS, TREES, 1)).astype(np.float32)
+
+    def trajectory(device):
+        lpv = make_lpv(LPV_SYSTEM["a0"], LPV_SYSTEM["da"], x0, LPV_SYSTEM["b"], LPV_SYSTEM["d"],
+                       LPV_SYSTEM["omega"], device=device)
+        u = torch.tensor(controls, device=device)
+        started = time.perf_counter()
+        for t in range(LPV_STEPS):
+            lpv = lpv_step(lpv, u[t], 0.1)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return lpv, (time.perf_counter() - started) * 1e3 / LPV_STEPS
+
+    trajectory(dev)  # warm-up
+    reset_launches()
+    got, card_ms = trajectory(dev)
+    want, cpu_ms = trajectory(CPU)
+    scale = max(1.0, float(want.x_hi.abs().max()), float(want.x_lo.abs().max()))
+    err = max(float((got.x_lo.cpu() - want.x_lo).abs().max()),
+              float((got.x_hi.cpu() - want.x_hi).abs().max())) / scale
+    expect(err <= LPV_TOLERANCE and bool((got.x_lo <= got.x_hi).all()),
+           f"lpv_step on the card: {err!r} from the CPU's (relative)")
+    print(f"lpv_step {TREES} interval states x {LPV_STEPS} steps: {card_ms!r} ms a step on the "
+          f"card, {cpu_ms!r} on the CPU, max|card - CPU| / scale = {err!r}")
+    result = {"lpv_interval_states": {"launches": read_launches(), "ms_per_step": card_ms,
+                                      "cpu_ms_per_step": cpu_ms, "max_rel_err": err}}
+
+    env_file = CONFIGS / "ObstacleEnv" / "env.json"
+    agent_file = CONFIGS / "ObstacleEnv" / "RobustEPCAgent.json"
+    handles = [load_environment(slice9_env(env_file), device=d) for d in (dev, CPU)]
+    agents = [load_agent(agent_file, h, device=d) for h, d in zip(handles, (dev, CPU))]
+    observations = [h.reset(seed=0)[0] for h in handles]
+    reset_launches()
+    seconds = []
+    for _ in range(SLICE9_AGENT_STEPS):
+        started = time.perf_counter()
+        action = agents[0].act(observations[0])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - started)
+        expect(action == agents[1].act(observations[1]),
+               "RobustEPCAgent: the card's action differs from the CPU agent's")
+        next_observations = []
+        for h, a, o in zip(handles, agents, observations):
+            out = h.step(action)
+            a.record(o, action, out[1], out[0], out[2], out[4])
+            next_observations.append(out[0])
+        observations = next_observations
+        expect(np.array_equal(agents[0].polytope()[0], agents[1].polytope()[0]),
+               "RobustEPCAgent: the polytopes differ")
+    launches = read_launches()
+    expect_launches("RobustEPCAgent", launches, 0, 0)
+    theta = agents[0].ellipsoids[-1][0]
+    print(f"RobustEPCAgent (ObstacleEnv/RobustEPCAgent.json): {SLICE9_AGENT_STEPS} steps, "
+          f"{statistics.median(seconds)!r} s per act(), actions equal to the CPU agent's, "
+          f"theta estimate {theta.tolist()}, launches {launches}")
+    result["robust_epc_obstacle_agent"] = {"launches": launches,
+                                           "s_per_act": statistics.median(seconds)}
+
+    linear = load_environment({"id": "linear-system", "max_episode_steps": 30}, device=dev)
+    agent = ConstrainedEPCAgent(linear, copy.deepcopy(EPC_TEST), device=dev)
+    obs = linear.reset(seed=0)[0]
+    reset_launches()
+    synthesis = []
+    for _ in range(SLICE9_AGENT_STEPS):
+        started = time.perf_counter()
+        agent.update_model_and_controller()
+        synthesis.append(time.perf_counter() - started)
+        control = agent.plan(obs)[0]
+        obs = linear.step(1 if np.ravel(control)[0] < 0 else 0)[0]
+    launches = read_launches()
+    expect_launches("ConstrainedEPCAgent", launches, 0, 0)
+    expect(agent.feedback.K0 is not None and np.isfinite(control).all(),
+           "ConstrainedEPCAgent: no gain or no control")
+    print(f"ConstrainedEPCAgent (tests/agents/test_robust.py:133-156): {SLICE9_AGENT_STEPS} "
+          f"plans, synthesis {statistics.median(synthesis)!r} s (pole placement: the config "
+          f"leaves ensure_stability false, so no LMI), K0 {np.round(agent.feedback.K0, 4).tolist()}")
+    result["constrained_epc_agent"] = {"launches": launches,
+                                       "s_synthesis": statistics.median(synthesis)}
+    result["linear_lane_keeping_agent"] = zero_kl_agent(
+        dev, "LinearFeedbackAgent (LaneKeepingEnv/agents/linear.json)",
+        slice9_env(CONFIGS / "LaneKeepingEnv" / "env.json"),
+        CONFIGS / "LaneKeepingEnv" / "agents" / "linear.json")
+
+    reset_launches()
+    solves = {}
+    for label, system, synthesize, iters in LMI_CASES:
+        verdicts, times_s, steps = [], [], []
+        for device in (dev, CPU):
+            started = time.perf_counter()
+            sol = lmi.solve_interval_lmi(*extended_matrices(**system),
+                                         synthesize_control=synthesize, iters=iters,
+                                         device=device)
+            times_s.append(time.perf_counter() - started)
+            verdicts.append(sol is not None)
+            steps.append(lmi.solve_spectral_feasibility.steps)
+        expect(verdicts[0] == verdicts[1] == (system is LMI_STABLE),
+               f"LMI {label}: verdicts {verdicts} on the card and the CPU")
+        print(f"LMI {label}: certified {verdicts[0]} after {steps[0]} steps on the card "
+              f"({times_s[0]!r} s, {times_s[0] / steps[0] * 1e3!r} ms a step) and {steps[1]} on "
+              f"the CPU ({times_s[1]!r} s)")
+        solves[label] = {"certified": verdicts[0], "steps": steps[0], "s": times_s[0],
+                         "cpu_steps": steps[1], "cpu_s": times_s[1]}
+    syncs = lmi_step_syncs(dev)
+    print(f"one LMI descent step synchronises with the host {syncs} times: a CUDA graph "
+          f"{'cannot' if syncs else 'can'} hold a chunk")
+    launches = read_launches()
+    expect_launches("LMI solves", launches, 0, 0)
+    result["lmi_solves"] = {"launches": launches, "solves": solves, "syncs_per_step": syncs}
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -2909,13 +3344,29 @@ def main():
     for path, result in slice8.items():
         paths[path] = result.pop("launches")
     print(json.dumps({"slice8": slice8}))
+    slice9 = {}
+    phase("32. MiniGrid paths")
+    print(card)
+    slice9.update(check_minigrid_paths(dev))
+    phase("33. grid and dynamics paths")
+    print(card)
+    slice9.update(check_grid_and_dynamics_paths(dev))
+    phase("34. classic-control and parking agent paths")
+    print(card)
+    slice9.update(check_classic_and_parking_paths(dev))
+    phase("35. robust control")
+    print(card)
+    slice9.update(check_robust_control_paths(dev))
+    for path, result in slice9.items():
+        paths[path] = result.pop("launches")
+    print(json.dumps({"slice9": slice9}))
     for kernel in kernels:
         kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         if kernel["launches"] == 0:
             raise AssertionError(f"no path launched {kernel['name']}")
 
-    phase("32. summary")
+    phase("36. summary")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,12 +7,14 @@ NamedTuples of tensors with a leading batch dimension, randomness comes from
 ``torch.Generator`` objects, and every entry point takes ``device=``
 (default ``"cuda"``, which raises when no card is present).
 
-Ported so far: the tree-search planners (KL-OLOP, MCTS, MDP-GapE, GBOP-D,
-stochastic GBOP, OPD, state-aware OPD) and the robust planners on CartPole,
-finite MDPs, Sailing and the highway family, and the DQN learner (the model
-zoo, the optimizers, ``DQNAgent`` and the fused actor-learner), end to end
-through ``factory``, ``trainer.evaluation`` and ``experiments``, with the KL
-bound computed by the hand-written CUDA kernel ``csrc/kl_bound.cu``.
+Ported so far: every planner and agent of the JAX package (tree search,
+dynamic programming, the value-based learners, CEM, the robust planners, the
+feedback controllers and the EPC agents) on every functional env (CartPole,
+finite MDPs, Sailing, the highway family, MiniGrid, the grid and line
+walks, the linear plants, classic control and parking, with the gymnasium
+bridge for any other id), end to end through ``factory``,
+``trainer.evaluation`` and ``experiments``, with the KL bound computed by
+the hand-written CUDA kernel ``csrc/kl_bound.cu``.
 """
 
 __version__ = "0.1.0"

@@ -28,6 +28,7 @@ from rl_agents_torch.envs.base import FunctionalEnv, params_to
 from rl_agents_torch.ops.kl_bound import kl_bound_indexed_
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS, fma
+from rl_agents_torch.utils.noise import noise_tensor
 
 
 def parse_threshold(spec, default_coeff: float = 4.0) -> float:
@@ -59,14 +60,16 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
               num_actions: int, episodes: int, horizon: int, gamma: float,
               threshold_coeff: float, ucb_type: str = "kullback-leibler",
               time_global: bool = True, continuation_uniform: bool = False,
-              random_actions=None, device="cuda"):
+              random_actions=None, env_noise=None, device="cuda"):
     """Plan B trees at once from ``states0`` (a state NamedTuple with a leading
     batch dim). Returns ``(actions [B, H] with -1 past the plan, lengths [B],
     OLOPTree)``.
 
     ``continuation_uniform`` continues leaves with uniform random actions:
     ``random_actions`` ``[episodes, horizon, B]`` supplies them, else they are
-    drawn from ``generator``.
+    drawn from ``generator``. ``env_noise`` is a stochastic env's own noise
+    for every step, ``[episodes, horizon, B, ...]``; without it the env draws
+    from ``generator``.
     """
     device = resolve_device(device)
     params = params_to(params, device)
@@ -132,6 +135,9 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
     else:
         random_actions = torch.zeros((E, H, B), dtype=i64, device=device)
 
+    if env_noise is not None:
+        env_noise = noise_tensor(env_noise, device)
+
     def child_values(values, ch, fill):
         """values[b, ch[b, a]] where ch >= 0, else ``fill``."""
         return torch.where(ch >= 0, values.gather(1, ch.clamp(min=0)), fill)
@@ -161,7 +167,8 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
             ucb_action = child_values(value_upper, ch, -torch.inf).argmax(dim=1)
             action = torch.where(is_leaf, random_actions[episode, h], ucb_action)
 
-            out = env.transition(params, state, action, generator)  # the observation is unused
+            out = env.transition(params, state, action, generator,  # the observation is unused
+                                 None if env_noise is None else env_noise[episode, h])
             child = ch.gather(1, action[:, None]).squeeze(1)
             # node reward statistics update (reference: olop.py:132-142)
             child_done = out.terminated | done[rows, child]

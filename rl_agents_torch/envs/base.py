@@ -176,6 +176,10 @@ class EnvHandle:
 
     def step(self, action):
         space = self.functional.action_space
+        if isinstance(space, Discrete) and np.ndim(action) != 0:
+            # a continuous controller's control vector is no discrete action
+            # (JAX's envs fail on its shape)
+            raise ValueError(f"a discrete action is a scalar, got shape {np.shape(action)}")
         dtype = torch.float32 if isinstance(space, Box) else torch.int64
         action = torch.as_tensor(np.asarray(action), dtype=dtype, device=self.device)
         action = action.reshape((1,) + tuple(space.shape))
@@ -228,8 +232,10 @@ class EnvHandle:
 
 
 def _first(obs):
-    """The first row of a batch observation (a tensor, or a tuple of them
-    with several controlled agents) as numpy."""
+    """The first row of a batch observation (a tensor, a tuple of them with
+    several controlled agents, or a dict of them) as numpy."""
     if isinstance(obs, tuple):
         return tuple(o[0].cpu().numpy() for o in obs)
+    if isinstance(obs, dict):
+        return {k: v[0].cpu().numpy() for k, v in obs.items()}
     return obs[0].cpu().numpy()

@@ -86,6 +86,33 @@ def fnma(a, b, c) -> torch.Tensor:
     return torch.addcmul(c, a.double(), b, value=-1).to(torch.float32)
 
 
+def matvec(m, x) -> torch.Tensor:
+    """``m @ x`` for a small matrix ``m`` (``[..., p, q]``) and vectors ``x``
+    (``[..., q]``), rounded as XLA's CPU dot rounds it: the first column's
+    product, then one fused multiply-add per further column, in order. The
+    linear envs and the interval predictor compare their states bit for bit
+    with the JAX package's."""
+    acc = m[..., 0] * x[..., 0, None]
+    return matvec_add(acc, m[..., 1:], x[..., 1:])
+
+
+def matvec_add(acc, m, x, sign: float = 1.0) -> torch.Tensor:
+    """``acc + sign * (m @ x)`` as one fused multiply-add per column of ``m``,
+    in order: XLA computes a product with one column (``B @ u`` with a
+    single control) as a multiply, and fuses it into the sum it feeds."""
+    for k in range(m.shape[-1]):
+        col = m[..., k] if sign > 0 else -m[..., k]
+        acc = fma(col, x[..., k, None], acc)
+    return acc
+
+
+def jax_index(index: torch.Tensor, n: int) -> torch.Tensor:
+    """``index`` as JAX's ``x[index]`` reads an axis of size ``n``: a
+    negative index counts from the end, and one still out of range is
+    clamped to the nearest end (CEM's discrete actions can be either)."""
+    return torch.clamp(torch.where(index < 0, index + n, index), 0, n - 1)
+
+
 def near_split(x: int, num_bins: int | None = None, size_bins: int | None = None) -> List[int]:
     """Split an integer into near-even bins (reference utils.py:43-58)."""
     if num_bins:

@@ -75,8 +75,11 @@ def test_agent_class_resolves_reference_paths_and_refuses_the_rest():
     cem = agent_class("<class 'rl_agents.agents.cross_entropy_method.cem.CEMAgent'>")
     assert cem is agent_class("CEMAgent")
     assert cem.__module__ == "rl_agents_torch.agents.cem"
+    linear = agent_class("<class 'rl_agents.agents.linear.linear_feedback.LinearFeedbackAgent'>")
+    assert linear.__module__ == "rl_agents_torch.agents.control"
+    # the corpus's one class that no package ships
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        agent_class("LinearFeedbackAgent")
+        agent_class("<class 'rl_agents.agents.robust.robust_epc.ModelBiasAgent'>")
 
 
 @pytest.mark.parametrize("path,module", [

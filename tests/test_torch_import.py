@@ -47,7 +47,31 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 25
+    assert int(proc.stdout.strip()) >= 79
+
+
+# the modules of the envs and robust-control slice, each held in the checks above
+SLICE_9_MODULES = ("robust/interval.py", "envs/linear.py", "envs/dynamics.py",
+                   "envs/gridenv.py", "envs/minigrid.py", "envs/classic.py", "envs/parking.py",
+                   "envs/bridge.py", "utils/lmi.py", "agents/control.py",
+                   "agents/robust/robust_epc.py", "agents/robust/constrained_epc.py")
+
+
+def test_the_slice_modules_are_checked():
+    assert {f"rl_agents_torch/{m}" for m in SLICE_9_MODULES} <= set(PORT_FILES)
+
+
+def test_the_bridge_imports_gymnasium_only_when_a_bridge_is_made():
+    code = (
+        "import sys\n"
+        "sys.modules['gymnasium'] = None\n"
+        "import rl_agents_torch.envs.bridge, rl_agents_torch.factory\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def test_kl_bound_on_cpu_never_touches_the_build(monkeypatch):
@@ -178,20 +202,46 @@ def test_entry_points_raise_without_a_card():
         make_actor_learner(CartPoleEnv(), model, optimizer_factory("ADAM"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_dqn_fused(CartPoleEnv(), model, total_steps=1, segment=1)
+    for env_id in ("gridenv", "lineenv", "dynamics", "mountaincar", "pendulum", "linear-system",
+                   "lane-keeping-v0", "parking-v0", "MiniGrid-Empty-16x16-v0"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_environment({"id": env_id})
+    linear = load_environment({"id": "linear-system"}, device="cpu")
+    epc = {"A": [[0.0, 1.0], [0.0, 0.0]], "B": [[0.0], [1.0]], "phi": [[[0.0, 0.0], [0.0, -1.0]]],
+           "sub_agent": {"__class__": "DeterministicPlannerAgent", "budget": 4}}
+    for config in ({"__class__": "LinearFeedbackAgent"}, {"__class__": "IntervalFeedbackAgent"},
+                   dict(epc, __class__="RobustEPCAgent"), dict(epc, __class__="NominalEPCAgent"),
+                   dict(epc, __class__="ConstrainedEPCAgent")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load_agent(config, linear)
+    from rl_agents_torch.robust.interval import make_lpv
+    from rl_agents_torch.utils.lmi import interval_lmi_problem, solve_interval_lmi
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_lpv(np.eye(2), np.zeros((1, 2, 2)), np.zeros(2))
+    eye = np.eye(2)
+    for solve in (interval_lmi_problem, solve_interval_lmi):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            solve(eye, eye, eye, np.ones((2, 1)))
 
 
 def test_agents_not_yet_ported_name_what_is_missing():
+    from rl_agents_torch.envs.bridge import GymBridge
     from rl_agents_torch.factory import load_agent, load_environment
 
     env = load_environment({"id": "cartpole"}, device="cpu")
-    for name in ("LinearFeedbackAgent", "RobustEPCAgent"):
-        with pytest.raises(NotImplementedError, match=name):
-            load_agent({"__class__": name}, env, device="cpu")
-    for env_id in ("gridenv-v0", "sailing-8-v0", "parking-v0"):
-        with pytest.raises(NotImplementedError, match=env_id):
+    # the one class that the corpus names and neither package ships
+    with pytest.raises(NotImplementedError, match="ModelBiasAgent"):
+        load_agent({"__class__": "ModelBiasAgent"}, env, device="cpu")
+    # an id that no functional env serves goes to the gymnasium bridge, as in
+    # JAX: gymnasium names the missing id
+    gym = pytest.importorskip("gymnasium")
+    for env_id in ("gridenv-v0", "sailing-8-v0"):
+        with pytest.raises(gym.error.Error, match=env_id.split("-v")[0]):
             load_environment({"id": env_id}, device="cpu")
+    assert isinstance(load_environment({"id": "CartPole-v1"}, device="cpu"), GymBridge)
     # ported since: the robust planners, the highway family, closed-loop MCTS,
-    # BRUE, CEM and the OPD parity planner
+    # BRUE, CEM, the OPD parity planner, the envs and the control agents
     obs = env.reset(seed=0)[0]
     for name in ("DiscreteRobustPlannerAgent", "IntervalRobustPlannerAgent"):
         assert load_agent({"__class__": name, "budget": 6}, env, device="cpu").act(obs) in (0, 1)
@@ -199,6 +249,12 @@ def test_agents_not_yet_ported_name_what_is_missing():
     for config in ({"__class__": "MCTSAgent", "closed_loop": True, "budget": 20},
                    {"__class__": "BRUEAgent", "budget": 20}, {"__class__": "CEMAgent"}):
         assert load_agent(config, env, device="cpu").act(obs) in (0, 1)
+    assert load_environment({"id": "parking-v0"}, device="cpu").observation_space.shape == (12,)
+    linear = load_environment({"id": "linear-system"}, device="cpu")
+    agent = load_agent({"__class__": "RobustEPCAgent", "A": [[0.0, 1.0], [0.0, 0.0]],
+                        "B": [[0.0], [1.0]], "phi": [[[0.0, 0.0], [0.0, -1.0]]]}, linear,
+                       device="cpu")
+    assert agent.act(linear.reset(seed=0)[0]) in (0, 1)
     from rl_agents_torch.agents.tree_search.deterministic import opd_plan_parity
     from rl_agents_torch.utils.pcg64 import pcg64_init
 

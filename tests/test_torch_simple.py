@@ -164,12 +164,12 @@ SLICE_CORPUS = _slice_corpus()
 def test_the_slice_corpus_is_what_the_audit_counted():
     names = [_class_name(load_agent_config(CONFIGS / agent)) for agent, _ in SLICE_CORPUS]
     assert set(names) == SLICE_AGENTS
-    # the agents the corpus audit found blocked on them, less those whose env
-    # is not ported yet (parking, lane-keeping)
+    # the agents the corpus audit found blocked on them, with the parking and
+    # lane-keeping configs since their envs are ported
     counts = {name: names.count(name) for name in SLICE_AGENTS}
     assert counts == {"FTQAgent": 18, "ValueIterationAgent": 9, "MCTSWithPriorPolicyAgent": 9,
-                      "BFTQAgent": 5, "RobustValueIterationAgent": 4, "OpenLoopAgent": 4,
-                      "RandomUniformAgent": 1}
+                      "BFTQAgent": 5, "RobustValueIterationAgent": 4, "OpenLoopAgent": 6,
+                      "RandomUniformAgent": 3}
 
 
 @pytest.mark.parametrize("agent_file,env_file", SLICE_CORPUS)
