@@ -173,11 +173,31 @@ non-zero without its final line:
     agents/linear.json`` for 3 steps; the LMI solves of tests/agents/
     test_lmi.py's systems on the card and the CPU (verdicts equal, times)
     and the host synchronisations of one descent step;
-36. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
-    last line. The DQN paths, the paths of phases 19-31 and the robust
-    control of phase 35 launch no hand kernel: their products, softmax,
-    hull, interval predictor and LMI descent are tensor functions, as the
-    JAX package computes them outside any Pallas kernel.
+36. ``make_sharded_actor_learner`` on a one-rank NCCL group at
+    ``__graft_entry__.py::dryrun_multichip``'s sizes (4 shards x 2 envs,
+    rings of 64, 4 rows a shard, learning from 8): CartPole with a (64, 64)
+    MLP for 12 steps and the EgoAttention flagship on highway (6 vehicles,
+    3 lanes) for 8, tp off (one rank has no tp axis), each against the same
+    segment on the CPU under the same injected draws (actions, terminals and
+    counters equal, rewards within 1e-6, parameters within 1e-5), ms a step
+    of a second segment, and a profiled step's all-reduce calls and NCCL
+    kernels;
+37. ``sharded_planner_batch`` over KL-OLOP on CartPole at phase 4's 4096
+    trees x 23 x 8: 23 ``kl_bound_indexed_`` launches, actions equal to
+    phase 4's unsharded plan;
+38. serving: the greedy policy of phase 17's trained highway DQN exported
+    with ``torch.export`` on the card, loaded with ``load_policy`` and served
+    at batches of 1, 64 and 4096 (actions equal to the agent's, Q within
+    1e-6), the export's seconds and ms a served batch;
+39. a ``save_pytree`` / ``load_pytree`` round trip of phase 36's flagship
+    state, bit-equal on the card; a ``trace()`` of one sharded step, its
+    Chrome trace written; ``device_memory_stats()``;
+40. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
+    last line. The DQN paths, the paths of phases 19-31, the robust control
+    of phase 35 and the learner, serving and checkpoints of phases 36-39
+    launch no hand kernel: their products, softmax, hull, interval
+    predictor, LMI descent and collectives are tensor functions and NCCL
+    calls, as the JAX package computes them outside any Pallas kernel.
 
 Every path is driven with every kernel launch counter set to 0 just before
 and read just after.
@@ -215,6 +235,9 @@ AGENT_CONFIG = {"__class__": "OLOPAgent", "budget": 184, "gamma": GAMMA}
 AGENT_MAX_STEPS = 5  # agent episodes are cut for the time limit (PERF.md §4)
 GARNET_AGENT_STEPS = 3  # of the 20 of env_garnet.json
 PLANS = 3  # timed plans of each batch path
+# cut to one timed plan for the time limit (PERF.md §4): the highway batch
+# paths (phase 14), the prior planner (20) and closed-loop MCTS (25)
+HW_PLANS = PRIOR_PLANS = CLOSED_LOOP_PLANS = 1
 CONFIGS = REPO / "scripts" / "configs"
 MCTS_TEMPERATURE = 40.0
 # MDP-GapE at the sizes of FiniteMDPEnv/agents/mdp-gape.json: budget 100 at
@@ -275,10 +298,12 @@ HW_OLOP = dict(num_actions=HW_ACTIONS, episodes=72, horizon=6, gamma=HW_OLOP_GAM
 HW_DROP = dict(num_actions=HW_ACTIONS, expansions=200 // HW_ACTIONS, gamma=0.9)
 HIGHWAY_AGENT_STEPS = 3
 # MCTS on highway launches about 2,900 kernels an episode: its profiled
-# plan runs a few episodes of the same trees. KL-OLOP's profiled plan stays
-# whole: the profiler's count of its KL kernels is held to one an episode,
-# and a shorter trace once lost one of them with a few hundred other records
+# plan runs a few episodes of the same trees. KL-OLOP's profiled plan runs 6
+# of its 72 episodes (about 14k kernels): the profiler's count of its KL
+# kernels is held to one an episode, and a whole plan's trace (165k kernels)
+# lost half its records on an H100 (PERF.md §4)
 HW_PROFILED_EPISODES = 3
+HW_OLOP_PROFILED_EPISODES = 6
 CPU = torch.device("cpu")
 
 # the DQN learner: the flagship model at __graft_entry__.entry()'s widths and
@@ -301,7 +326,7 @@ CURVE_EPISODES = 64
 GRAPH_CHECK_STEPS = 100
 # bench.py:436-455: highway at 15 vehicles, 4 lanes, 40 steps; 64 envs
 EGO_FUSED = dict(num_envs=64, batch_size=64, capacity=10_240)
-EGO_FUSED_WARM, EGO_FUSED_STEPS, EGO_FUSED_PROFILED = 50, 300, 10
+EGO_FUSED_WARM, EGO_FUSED_STEPS, EGO_FUSED_PROFILED = 50, 100, 10
 # slice 7: dynamic programming (5-step agent episodes; the stochastic
 # contraction on a random MDP of 512 states), MCTS with the DQN prior of
 # MCTSWithPriorPolicyAgent/baseline.json at the JAX bench's MCTS-highway size,
@@ -838,7 +863,7 @@ def check_olop_batch_path(dev) -> dict:
                                         device=cpu, **kw))
     same_on_cpu("olop_plan_batch", got, want, ("actions", "lengths", "parent", "count"),
                 ("value_upper",))
-    return launches
+    return launches, got["actions"]
 
 
 def check_mcts_batch_path(dev) -> dict:
@@ -1037,10 +1062,15 @@ def check_gbop_batch_path(dev) -> dict:
                  f"width={GBOP['width']}", times, TREES * E * H, "sample-steps")
     print(f"  {launches['kl_bound'] // PLANS} kl_bound launches per plan; {PLANS} plans: "
           f"{sweep_line(TREES)}")
-    profiled = profile_plan(plan, host_events=False)
-    if profiled["kl_launches"] != GBOP_KL_LAUNCHES:
-        raise AssertionError(f"the profiler saw {profiled['kl_launches']} KL kernels in one "
-                             f"plan, expected {GBOP_KL_LAUNCHES}")
+    # one episode of the three profiled: a whole plan's trace (~51k kernels)
+    # lost half its records on an H100 (PERF.md §4)
+    short = lambda: gbop_stochastic_plan_batch(env, params, states0, obs0, generator, device=dev,
+                                               **dict(GBOP, episodes=1))
+    profiled = profile_plan(short, host_events=False)
+    if profiled["kl_launches"] != GBOP_KL_LAUNCHES // E:
+        raise AssertionError(f"the profiler saw {profiled['kl_launches']} KL kernels in a "
+                             f"one-episode plan, expected {GBOP_KL_LAUNCHES // E}")
+    print(f"  the profiled plan ran 1 of {E} episodes")
 
     # the same noise on both devices: drawn once on the CPU
     cpu = torch.device("cpu")
@@ -1272,7 +1302,7 @@ def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, clos
                        trees: int | None = None, validate=None, short=None) -> dict:
     """One highway batch path: ``run(device, n, noise)`` plans the first
     ``n`` trees (noise None: drawn from a generator on the device).
-    ``PLANS`` timed plans with the launches of each KL form counted (the given
+    ``HW_PLANS`` timed plans with the launches of each KL form counted (the given
     numbers per plan; no warm-up plan: phase 3 and the earlier paths warmed
     the kernels, and the median takes the rest), then one profiled plan under
     noise drawn on the CPU, whose first ``CPU_SUBSET`` trees are held against
@@ -1285,12 +1315,12 @@ def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, clos
     plan = lambda: run(dev, trees, None)
     reset_launches()
     reset_sweeps()
-    times = timed_plans(plan)
+    times = timed_plans(plan, HW_PLANS)
     launches = read_launches()
-    expect_launches(f"{name}, {PLANS} plans", launches, PLANS * kl_bound,
-                    PLANS * kl_bound_indexed)
+    expect_launches(f"{name}, {HW_PLANS} plans", launches, HW_PLANS * kl_bound,
+                    HW_PLANS * kl_bound_indexed)
     ms = report_plans(f"{name} B={trees}", times, work, unit)
-    print(f"  {launches} launches in {PLANS} plans; {sweep_line(trees)}")
+    print(f"  {launches} launches in {HW_PLANS} plans; {sweep_line(trees)}")
     noise = make_noise(trees)
     results = []
     if short is None:
@@ -1428,7 +1458,10 @@ def check_highway_batch_paths(dev) -> dict:
         ("mu_ucb", "value_upper"), TREES * E * H, "env-steps", kl_bound_indexed=E,
         validate=lambda g: expect(
             (np.take_along_axis(g["count"], g["children"][:, 0], 1).sum(axis=1) == E).all(),
-            "KL-OLOP on highway: the root's children were not visited once per episode"))
+            "KL-OLOP on highway: the root's children were not visited once per episode"),
+        short=(HW_OLOP_PROFILED_EPISODES, lambda d, n: batch.olop_plan_batch(
+            env, params(d), states(d, n), gen(d, None), device=d,
+            **dict(HW_OLOP, episodes=HW_OLOP_PROFILED_EPISODES)), HW_OLOP_PROFILED_EPISODES))
 
     print("-- DROP on merge-v0")
     denv, dparams, dstates, M = drop_case(dev)
@@ -1633,7 +1666,8 @@ def check_dqn_object_path(dev) -> dict:
     print(f"  greedy test() of the recovered agent: return {episode['total_reward']!r} in "
           f"{episode['length']} steps, {seconds / episode['length'] * 1e3!r} ms per step")
     launches = {k: v + read_launches()[k] for k, v in launches.items()}
-    return {"launches": launches, "sgd_ms": sgd_ms, "env_step_ms": train_ms}
+    return {"launches": launches, "sgd_ms": sgd_ms, "env_step_ms": train_ms, "agent": agent,
+            "handle": env}
 
 
 def greedy_returns(env, model, params, episodes: int, dev, seed: int = 123,
@@ -1932,9 +1966,9 @@ def check_mcts_prior_batch_path(dev) -> dict:
     E, H = HW_MCTS["episodes"], HW_MCTS["horizon"]
     work = TREES * E * H
     reset_launches()
-    times = timed_plans(lambda: run(dev, TREES, None))
+    times = timed_plans(lambda: run(dev, TREES, None), PRIOR_PLANS)
     launches = read_launches()
-    expect_launches(f"MCTS-with-prior batch path, {PLANS} plans", launches, 0, 0)
+    expect_launches(f"MCTS-with-prior batch path, {PRIOR_PLANS} plans", launches, 0, 0)
     forwards = mcts_prior_plan.prior_forwards
     ms = report_plans(f"mcts_prior_plan_batch on highway B={TREES} episodes={E} horizon={H}, "
                       f"DQN prior {list(PRIOR_LAYERS)}", times, work, "env-steps")
@@ -2358,6 +2392,7 @@ def check_bftq(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 SLICE8_AGENT_STEPS = 3
+BRUE_AGENT_STEPS = 1  # brue.json's agent takes ~4.5 s an act(): cut for the time limit
 BRUE_CHAIN = 64  # positions of BRUE's injected draw chain (past it the last one repeats)
 TB_BATCH, TB_BUDGET = 512, 500  # bench_trailblazer_batched (bench.py:624-671)
 TB_KW = dict(gamma=0.5, delta=0.1, epsilon=4.0, max_oracle_calls=TB_BUDGET)
@@ -2476,7 +2511,8 @@ def check_closed_loop_paths(dev) -> dict:
                                                 device=dev, **dict(kw, episodes=3))
     result = slice8_batch_path(f"mcts_closed_loop_plan_batch on highway B={TREES} "
                                f"episodes={EPISODES} horizon={HORIZON}", plan,
-                               TREES * EPISODES * HORIZON, "env-steps", profiled=short)
+                               TREES * EPISODES * HORIZON, "env-steps", profiled=short,
+                               count=CLOSED_LOOP_PLANS)
     print(f"  the profiled plan ran 3 of {EPISODES} episodes")
     noise = dpw_noise(dev, EPISODES, HORIZON, TREES, HW_ACTIONS, kw["width"], 9, expand=False)
     noise = noise._replace(env=None, rollout_env=None)  # highway draws nothing
@@ -2554,7 +2590,7 @@ def check_brue_paths(dev) -> dict:
                 ("actions", "d_count", "d_children", "c_count", "c_child_keys", "c_children",
                  "d_used", "c_used"), ("d_reward", "c_value"), CPU_SUBSET)
     sailing = json.loads((CONFIGS / "SailingEnv" / "env.json").read_text())
-    sailing["max_episode_steps"] = SLICE8_AGENT_STEPS
+    sailing["max_episode_steps"] = BRUE_AGENT_STEPS
     handle = load_environment(sailing, device=dev)
     agent = load_agent(CONFIGS / "SailingEnv" / "agents" / "brue.json", handle, device=dev)
     agent_result = timed_agent_episode(dev, "BRUEAgent (brue.json) on Sailing", handle, agent)
@@ -3209,6 +3245,284 @@ def check_robust_control_paths(dev) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Slice 10: the sharded learner and planner batch on NCCL, serving,
+# checkpoints and profiling
+# ---------------------------------------------------------------------------
+
+# __graft_entry__.py::dryrun_multichip's sizes: S shards of E envs, rings of
+# C, B rows a shard; CartPole with a (64, 64) MLP for 12 steps, the
+# EgoAttention flagship on highway (6 vehicles, 3 lanes) for 8
+SHARDED = dict(num_shards=4, envs_per_shard=2, capacity=64, batch_size=4, learning_starts=8)
+SHARDED_STEPS = {"cartpole": 12, "highway": 8}
+FLAGSHIP = dict(out=5, embedding_layers=(16,), others_embedding_layers=(16,),
+                output_layers=(16,), feature_size=16, heads=2)
+SERVED_BATCHES = (1, 64, 4096)
+SERVING_Q_TOLERANCE = 1e-6
+# highway's rewards go through transcendentals that the card and the CPU
+# round apart by ulps; CartPole's are held equal
+SHARDED_REWARD_TOLERANCE = {"cartpole": 0.0, "highway": 1e-6}
+
+
+def sharded_case(name: str):
+    """(env, model, injected draws on the CPU) of one sharded learner case;
+    the draws come from a seeded CPU generator, so the card and the CPU run
+    the same segment."""
+    from rl_agents_torch.envs.cartpole import CartPoleEnv
+    from rl_agents_torch.envs.highway import HighwayEnv
+    from rl_agents_torch.models.zoo import EgoAttentionNetwork, MultiLayerPerceptron
+    from rl_agents_torch.parallel.actor_learner import SegmentDraws
+
+    S, E, B = SHARDED["num_shards"], SHARDED["envs_per_shard"], SHARDED["batch_size"]
+    K = SHARDED_STEPS[name]
+    g = torch.Generator().manual_seed(10)
+    if name == "cartpole":
+        env, model = CartPoleEnv(max_episode_steps=50), MultiLayerPerceptron(4, (64, 64), out=2)
+        reset0 = torch.rand((S, E, 4), generator=g) * 0.1 - 0.05
+        reset = torch.rand((K, S, E, 4), generator=g) * 0.1 - 0.05
+    else:
+        env = HighwayEnv(vehicles=6, lanes=3, max_episode_steps=20)
+        model = EgoAttentionNetwork(env.observation_space.shape[-1], **FLAGSHIP)
+
+        def highway_noise(*lead):
+            shape = lead + (env.vehicles,)
+            return (torch.rand(shape, generator=g),
+                    torch.randint(0, env.lanes, shape, generator=g),
+                    torch.rand(shape, generator=g))
+        reset0, reset = highway_noise(S, E), highway_noise(K, S, E)
+    draws = SegmentDraws(explore=torch.rand((K, S, E), generator=g),
+                         random_actions=torch.randint(0, env.action_space.n, (K, S, E),
+                                                      generator=g),
+                         reset=reset, sample=torch.rand((K, S, B), generator=g))
+    return env, model, reset0, draws
+
+
+def to_device(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return type(tree)(*(to_device(x, device) for x in tree)) if hasattr(tree, "_fields") \
+        else type(tree)(to_device(x, device) for x in tree)
+
+
+def nccl_kernels(run) -> dict:
+    """A profile of ``run``: its ``all_reduce`` calls, the device kernels
+    whose name holds ``nccl``, and all its device kernels."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0 or e.count]
+    return {"all_reduce_calls": len(calls),
+            "nccl_kernels": sum(e.count for e in events if "nccl" in e.key.lower()),
+            "device_kernels": sum(e.count for e in events
+                                  if e.device_type == torch.autograd.DeviceType.CUDA)}
+
+
+def check_distributed(dev) -> dict:
+    """``make_sharded_actor_learner`` on a one-rank NCCL group at
+    ``dryrun_multichip``'s sizes (4 shards, tp off: one rank has no tp axis),
+    each case held against the same segment on the CPU under the same
+    injected draws; returns the flagship's state and generator for phase 39."""
+    import torch.distributed as dist
+
+    from rl_agents_torch.models.optimizers import optimizer_factory
+    from rl_agents_torch.parallel.actor_learner import make_sharded_actor_learner
+    from rl_agents_torch.parallel.distributed import make_pod_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=dev)
+    mesh = make_pod_mesh(axes=("host", "dp"), hosts=1)
+    expect(mesh.device_type == "cuda" and dist.get_backend() == "nccl",
+           "the one-rank group is not NCCL on the card")
+    result, states = {}, {}
+    reset_launches()
+    for name in ("cartpole", "highway"):
+        env, model, reset0, draws = sharded_case(name)
+        params = {k: v.detach().clone() for k, v in model.named_parameters()}
+        runs = {}
+        for label, device, group_mesh in (("card", dev, mesh), ("cpu", CPU, None)):
+            init_fn, segment_fn, shardings_fn = make_sharded_actor_learner(
+                env, copy.deepcopy(model), optimizer_factory("ADAM", lr=5e-4), group_mesh,
+                device=device, **SHARDED)
+            state = init_fn(torch.Generator(device=device).manual_seed(0), params=params,
+                            reset_noise=to_device(reset0, device))
+            device_draws = to_device(draws, device)
+            started = time.time()
+            _, reward = segment_fn(state, steps=SHARDED_STEPS[name], draws=device_draws)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            runs[label] = (state, float(reward), time.time() - started, segment_fn, shardings_fn)
+        card, cpu = runs["card"][0], runs["cpu"][0]
+        for field in ("action", "terminal"):
+            expect(torch.equal(getattr(card.buffer, field).cpu(), getattr(cpu.buffer, field)),
+                   f"sharded learner ({name}): the ring's {field} differs from the CPU's")
+        reward_diff = float((card.buffer.reward.cpu() - cpu.buffer.reward).abs().max())
+        expect(reward_diff <= SHARDED_REWARD_TOLERANCE[name],
+               f"sharded learner ({name}): rewards {reward_diff!r} from the CPU's")
+        counters = [int(getattr(s, f)) for s in (card, cpu)
+                    for f in ("position", "size", "time", "completed_count")]
+        expect(counters[:4] == counters[4:] and int(card.opt_state["count"]) > 0,
+               f"sharded learner ({name}): counters {counters} differ or no update ran")
+        worst = max(float((card.params[k].cpu() - cpu.params[k]).abs().max())
+                    for k in cpu.params)
+        expect(worst <= MODEL_TOLERANCE, f"sharded learner ({name}): parameters {worst!r} "
+                                         f"from the CPU's")
+        segment_fn = runs["card"][3]
+        steps = SHARDED_STEPS[name]
+        started = time.time()  # a second segment, its draws from the rank's generator
+        segment_fn(card, steps=steps)
+        torch.cuda.synchronize()
+        ms = (time.time() - started) / steps * 1e3
+        profiled = nccl_kernels(lambda: segment_fn(card, steps=1, draws=first_step(
+            to_device(draws, dev))))
+        print(f"sharded learner, {name}, one-rank NCCL group, {SHARDED['num_shards']} shards x "
+              f"{SHARDED['envs_per_shard']} envs: {steps} steps (first segment "
+              f"{runs['card'][2] / steps * 1e3!r} ms a step), {int(card.opt_state['count'])} "
+              f"updates; actions, terminals and counters equal to the CPU's, rewards within "
+              f"{reward_diff!r}, parameters within {worst!r}; a second segment {ms!r} ms a step "
+              f"(eager); one profiled step: {profiled}")
+        result[name] = {"ms_per_step": ms, "param_err": worst, "reward_err": reward_diff,
+                        **profiled}
+        states[name] = (card, runs["card"][3], runs["card"][4], to_device(draws, dev))
+    launches = read_launches()
+    expect_launches("sharded learner", launches, 0, 0)
+    return {"launches": launches, "cases": result, "states": states}
+
+
+def first_step(draws):
+    """The first step of a segment's draws, as a one-step segment."""
+    from rl_agents_torch.parallel.actor_learner import SegmentDraws
+
+    def first(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x[:1]
+        return type(x)(first(v) for v in x)
+    return SegmentDraws(*(first(x) for x in draws))
+
+
+def check_sharded_planner_batch(dev, unsharded_actions) -> dict:
+    """``sharded_planner_batch`` over KL-OLOP on CartPole at phase 4's 4096
+    trees x 23 x 8 on the one-rank NCCL group: one ``kl_bound_indexed_``
+    launch per episode, actions equal to phase 4's unsharded plan."""
+    from rl_agents_torch.agents.tree_search.batch import olop_plan_batch
+    from rl_agents_torch.parallel.distributed import make_pod_mesh
+    from rl_agents_torch.parallel.mesh import sharded_planner_batch
+
+    env, params, states = cartpole_case(dev)
+    kw = dict(num_actions=2, episodes=EPISODES, horizon=HORIZON, gamma=GAMMA, threshold_coeff=4.0)
+    mesh = make_pod_mesh(axes=("host", "dp"), hosts=1)
+    states0 = states(dev, TREES)
+    outs = []
+    plan = lambda: outs.append(sharded_planner_batch(
+        mesh, lambda p, s, n: olop_plan_batch(env, p, s, device=dev, **kw)[:2], params, states0))
+    plan()  # warm-up
+    outs.clear()
+    reset_launches()
+    times = timed_plans(plan, count=1)
+    launches = read_launches()
+    expect_launches("sharded planner batch", launches, 0, EPISODES)
+    actions = outs[0][0].cpu().numpy()
+    expect(np.array_equal(actions, unsharded_actions),
+           "sharded planner batch: actions differ from phase 4's unsharded plan")
+    report_plans(f"sharded_planner_batch (olop_plan_batch) B={TREES} episodes={EPISODES} "
+                 f"horizon={HORIZON}, one-rank NCCL group", times,
+                 TREES * EPISODES * HORIZON, "env-steps")
+    unsharded = timed_plans(lambda: olop_plan_batch(env, params, states0, device=dev, **kw), 1)
+    print(f"  {launches['kl_bound_indexed_']} kl_bound_indexed_ launches; actions equal to "
+          f"phase 4's unsharded plan; the unsharded plan here: {unsharded[0]!r} ms")
+    return {"launches": launches, "ms": times[0], "unsharded_ms": unsharded[0]}
+
+
+def check_serving(dev, agent, handle) -> dict:
+    """The greedy policy of phase 17's trained highway DQN exported on the
+    card, loaded with ``load_policy`` and served at batches of 1, 64 and 4096
+    highway observations: actions equal the agent's greedy actions, Q within
+    ``SERVING_Q_TOLERANCE``."""
+    from rl_agents_torch.agents.dqn.agent import q_values
+    from rl_agents_torch.serving import load_policy, save_policy
+
+    path = REPO / "out" / "chip_smoke" / "serving" / "ego_attention.pt2"
+    reset_launches()
+    started = time.time()
+    save_policy(agent, path)
+    export_s = time.time() - started
+    policy = load_policy(path)
+    functional = handle.functional
+    _, obs = functional.reset(handle.params, torch.Generator(device=dev).manual_seed(11),
+                              max(SERVED_BATCHES))
+    served = {}
+    for batch in SERVED_BATCHES:
+        x = obs[:batch].float()
+        actions, q = policy(x)
+        with torch.no_grad():
+            want = q_values(agent.model, agent.train_state.params, x)
+        err = float((q - want).abs().max())
+        expect(torch.equal(actions, want.argmax(dim=1)) and err <= SERVING_Q_TOLERANCE,
+               f"served policy at batch {batch}: actions differ or Q {err!r} from the agent's")
+        served[batch] = {"ms": cuda_ms(lambda: policy(x), 20), "q_err": err}
+    print(f"served policy (ego_attention.json, trained in phase 17): exported in {export_s!r} s; "
+          + ", ".join(f"batch {b}: {r['ms']!r} ms, Q within {r['q_err']!r}"
+                      for b, r in served.items()) + "; actions equal to the agent's")
+    return {"launches": read_launches(), "export_s": export_s, "served": served}
+
+
+def check_checkpoint_and_profiling(dev, states) -> dict:
+    """A ``save_pytree`` / ``load_pytree`` round trip of phase 36's flagship
+    state on the card, bit-equal; a ``trace()`` of one CartPole segment, its
+    Chrome trace written; ``device_memory_stats()``."""
+    from rl_agents_torch.trainer.checkpoint import load_pytree, save_pytree
+    from rl_agents_torch.trainer.profiling import device_memory_stats, trace
+
+    directory = REPO / "out" / "chip_smoke" / "slice10"
+    state, _, shardings_fn, _ = states["highway"]
+    reset_launches()
+    started = time.time()
+    save_pytree(directory / "flagship", state, shardings_fn(state))
+    restored = load_pytree(directory / "flagship", template=state)
+    seconds = time.time() - started
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        if isinstance(tree, torch.Generator):
+            return [tree.get_state()]
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        return [x for v in tree for x in leaves(v)]
+    pairs = list(zip(leaves(state), leaves(restored)))
+    expect(all(torch.equal(a, b) and a.device == b.device for a, b in pairs),
+           "checkpoint round trip: a leaf differs or moved")
+    print(f"save_pytree / load_pytree of the flagship's sharded state: {len(pairs)} leaves "
+          f"bit-equal on {restored.obs.device}, {seconds!r} s")
+    card, segment_fn, _, draws = states["cartpole"]
+    with trace(directory / "trace"):
+        segment_fn(card, steps=1, draws=first_step(draws))
+    size = (directory / "trace" / "trace.json").stat().st_size
+    expect(size > 0, "trace(): no trace written")
+    print(f"trace() of one sharded CartPole step: {size} bytes of Chrome trace")
+    stats = device_memory_stats()
+    print(f"device_memory_stats(): {json.dumps(stats)}")
+    expect(stats and all(s["bytes_limit"] > 0 for s in stats.values()),
+           "device_memory_stats(): no card")
+    return {"launches": read_launches(), "checkpoint_s": seconds, "trace_bytes": size,
+            "memory": stats}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -3238,7 +3552,7 @@ def main():
     cartpole["max_episode_steps"] = AGENT_MAX_STEPS
     paths = {}
     phase("4. OLOP batch path")
-    paths["olop_batch_plans"] = check_olop_batch_path(dev)
+    paths["olop_batch_plans"], olop_actions = check_olop_batch_path(dev)
     phase("5. OLOP agent path")
     # one kl_bound_indexed_ launch per planning episode
     paths["olop_agent"] = check_agent_path(dev, "OLOPAgent", cartpole, dict(AGENT_CONFIG), 0,
@@ -3296,6 +3610,8 @@ def main():
     learner["ego_attention_models"] = check_models(dev)
     phase("17. DQN agent path")
     learner["dqn_highway_agent"] = check_dqn_object_path(dev)
+    dqn_agent = learner["dqn_highway_agent"].pop("agent")
+    dqn_handle = learner["dqn_highway_agent"].pop("handle")
     phase("18. fused actor-learner")
     learner["dqn_fused"] = check_fused_learner(dev)
     for path, result in learner.items():
@@ -3360,13 +3676,31 @@ def main():
     for path, result in slice9.items():
         paths[path] = result.pop("launches")
     print(json.dumps({"slice9": slice9}))
+    slice10 = {}
+    phase("36. sharded actor-learner on a one-rank NCCL group")
+    print(card)
+    slice10["sharded_learner"] = check_distributed(dev)
+    learner_states = slice10["sharded_learner"].pop("states")
+    phase("37. sharded planner batch")
+    print(card)
+    slice10["sharded_planner_batch"] = check_sharded_planner_batch(dev, olop_actions)
+    phase("38. serving")
+    print(card)
+    slice10["serving"] = check_serving(dev, dqn_agent, dqn_handle)
+    phase("39. checkpoint and profiling")
+    print(card)
+    slice10["checkpoint_profiling"] = check_checkpoint_and_profiling(dev, learner_states)
+    torch.distributed.destroy_process_group()
+    for path, result in slice10.items():
+        paths[path] = result.pop("launches")
+    print(json.dumps({"slice10": slice10}))
     for kernel in kernels:
         kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         if kernel["launches"] == 0:
             raise AssertionError(f"no path launched {kernel['name']}")
 
-    phase("36. summary")
+    phase("40. summary")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -328,15 +328,28 @@ class DQNAgent(AbstractStochasticAgent):
         return float(state.completed_return)
 
     def save(self, filename):
-        """Save parameters, target and optimizer state with ``torch.save``.
-        The JAX package's ``"orbax"`` checkpoint format maps to this file."""
+        """Save parameters, target and optimizer state with ``torch.save``;
+        with ``"checkpoint_format": "orbax"``, as a ``save_pytree``
+        directory at ``filename.with_suffix(".orbax")``, whose path is
+        returned (JAX's ``agent.py:291-320``)."""
         filename = Path(filename)
         filename.parent.mkdir(parents=True, exist_ok=True)
+        if self.config.get("checkpoint_format") == "orbax":
+            from rl_agents_torch.trainer.checkpoint import save_pytree
+
+            return save_pytree(filename.with_suffix(".orbax"), self.train_state._asdict())
         torch.save(_to_cpu(self.train_state._asdict()), filename)
         return filename
 
     def load(self, filename):
         filename = Path(filename)
+        if self.config.get("checkpoint_format") == "orbax" or filename.suffix == ".orbax":
+            from rl_agents_torch.trainer.checkpoint import load_pytree
+
+            restored = load_pytree(filename.with_suffix(".orbax"),
+                                   template=self.train_state._asdict())
+            self.train_state = TrainState(**restored)
+            return filename
         state = torch.load(filename, map_location=self.device, weights_only=True)
         self.train_state = TrainState(**state)
         return filename

@@ -234,17 +234,25 @@ class HighwayEnv(FunctionalEnv):
             t=torch.zeros(B, dtype=torch.int64, device=device))
 
     # ------------------------------------------------------------------
-    def reset(self, params: HighwayParams, generator: torch.Generator, batch: int = 1):
+    def reset(self, params: HighwayParams, generator: torch.Generator, batch: int = 1,
+              noise=None):
+        """``batch`` fresh states. ``noise`` injects the draws, ``(spacing,
+        lane, speed)`` of shape ``[batch, V]`` each: uniforms in [0, 1), lane
+        indices, uniforms; without it they come from ``generator``."""
         V, L, N = self.vehicles, self.lanes, self.controlled_vehicles
         device = params.dt.device
-        gen_device = generator.device
+        if noise is None:
+            gen_device = generator.device
+            spacing_u = torch.rand((batch, V), generator=generator, device=gen_device)
+            lane = torch.randint(0, L, (batch, V), generator=generator, device=gen_device)
+            speed_u = torch.rand((batch, V), generator=generator, device=gen_device)
+        else:
+            spacing_u, lane, speed_u = noise
         # ego at x=0 on the leftmost lane index L-1; traffic ahead, ~25 m apart
-        spacing = (25.0 + 5.0 * torch.rand((batch, V), generator=generator,
-                                           device=gen_device)).to(device)
+        spacing = (25.0 + 5.0 * spacing_u).to(device)
         x = torch.cumsum(spacing, dim=1) - spacing[:, :1]
-        lane = torch.randint(0, L, (batch, V), generator=generator, device=gen_device).to(device)
-        speed = (20.0 + 5.0 * torch.rand((batch, V), generator=generator,
-                                         device=gen_device)).to(device)
+        lane = lane.to(device=device, dtype=torch.int64, copy=True)
+        speed = (20.0 + 5.0 * speed_u).to(device)
         lane[:, 0] = L - 1
         # all egos start at cruise speed; extra egos keep their random lanes
         speed = torch.where(torch.arange(V, device=device) < N, 25.0, speed)

@@ -9,9 +9,11 @@ model recovery, whole-run fused training for agents with ``"fused": true``,
 and the batched episodes of the fitted agents (``agent.batched``: FTQ, BFTQ),
 which alternate sample collection and ``update()``. Each finished episode is
 appended to ``episodes.jsonl`` in the run directory and, when tensorboardX
-is installed, written as scalars.
+is installed, written as scalars (``trainer/metrics.py::NullWriter``
+otherwise).
 
-Not ported yet: viewers and recorders.
+Not ported yet: the viewers and recorders (``display_env``,
+``display_agent``, ``display_rewards``), which wait for the graphics slice.
 """
 from __future__ import annotations
 
@@ -21,16 +23,16 @@ import logging
 import os
 import time
 from pathlib import Path
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 
 from rl_agents_torch.configuration import serialize
+from rl_agents_torch.trainer import logger as run_logger
+from rl_agents_torch.trainer.metrics import NullWriter
 from rl_agents_torch.utils.math import near_split
 
 logger = logging.getLogger(__name__)
-
-_LOG_FORMAT = "[%(levelname)s] %(asctime)s %(name)s: %(message)s"
 
 
 class Transition(NamedTuple):
@@ -49,19 +51,6 @@ def capped_cubic_video_schedule(episode: int) -> bool:
     return episode % 1000 == 0
 
 
-class NullWriter:
-    """Metrics sink used when tensorboardX is not installed."""
-
-    def add_scalar(self, *args, **kwargs):
-        pass
-
-    def add_histogram(self, *args, **kwargs):
-        pass
-
-    def close(self):
-        pass
-
-
 class Evaluation:
     OUTPUT_FOLDER = "out"
     SAVED_MODELS_FOLDER = "saved_models"
@@ -74,10 +63,23 @@ class Evaluation:
                  env,
                  agent,
                  directory=None,
+                 run_directory=None,
                  num_episodes: int = 1000,
                  training: bool = False,
                  sim_seed: Optional[int] = None,
-                 recover=None):
+                 recover=None,
+                 display_env: bool = False,
+                 display_agent: bool = False,
+                 display_rewards: bool = False,
+                 close_env: bool = True,
+                 step_callback_fn: Optional[Callable] = None):
+        """``step_callback_fn(episode, env, agent, transition, writer)`` is
+        called after every env step with ``transition = (observation, action,
+        reward, next_observation, done, truncated, info)``."""
+        if display_env or display_agent or display_rewards:
+            raise NotImplementedError(
+                "display_env, display_agent and display_rewards: the viewers and recorders "
+                "are not ported yet (slice 11, the graphics)")
         self.env = env
         self.agent = agent
         self.num_episodes = num_episodes
@@ -85,9 +87,11 @@ class Evaluation:
         if sim_seed is None:
             sim_seed = int(np.random.default_rng().integers(0, 1_000_000))
         self.sim_seed = sim_seed
+        self.close_env = close_env
+        self.step_callback_fn = step_callback_fn
 
         self.directory = Path(directory or self.default_directory)
-        self.run_directory = self.directory / self.default_run_directory
+        self.run_directory = self.directory / (run_directory or self.default_run_directory)
         self.run_directory.mkdir(parents=True, exist_ok=True)
         self.episode = 0
         self.writer = self._make_writer()
@@ -213,6 +217,10 @@ class Evaluation:
         previous_observation, action = self.observation, actions[0]
         self.observation, reward, done, truncated, info = self.env.step(action)
         terminal = bool(done) or bool(truncated)
+        if self.step_callback_fn is not None:
+            self.step_callback_fn(self.episode, self.env, self.agent,
+                                  (previous_observation, action, reward, self.observation,
+                                   done, truncated, info), self.writer)
         try:
             self.agent.record(previous_observation, action, reward, self.observation, done, info)
         except NotImplementedError:
@@ -254,12 +262,14 @@ class Evaluation:
             self.best_agent_stats = (self.filtered_agent_stats, episode)
             self.save_agent_model("best")
 
-    def save_agent_model(self, identifier):
+    def save_agent_model(self, identifier, do_save: bool = True):
         """Save the agent to ``saved_models/latest.tar`` and to the run's
         ``checkpoint-<identifier>.tar``; return the latter's path (False for
-        a stateless agent)."""
+        a stateless agent, None when ``do_save`` is false)."""
         permanent_folder = self.directory / self.SAVED_MODELS_FOLDER
         os.makedirs(permanent_folder, exist_ok=True)
+        if not do_save:
+            return None
         self.agent.save(filename=permanent_folder / "latest.tar")
         episode_path = self.agent.save(filename=self.run_directory / f"checkpoint-{identifier}.tar")
         if episode_path:
@@ -304,12 +314,14 @@ class Evaluation:
             json.dump(metadata, f, sort_keys=True, indent=4, default=repr)
 
     def write_logging(self) -> logging.Handler:
+        """The run's DEBUG log file (``trainer/logger.py``), and the default
+        stream configuration when nothing configured logging before (the
+        CLI's ``--verbose`` does)."""
+        if not logging.getLogger().handlers:
+            run_logger.configure()
         file_infix = f"{id(self.env)}.{os.getpid()}"
-        handler = logging.FileHandler(self.run_directory / self.LOGGING_FILE.format(file_infix))
-        handler.setLevel(logging.DEBUG)
-        handler.setFormatter(logging.Formatter(_LOG_FORMAT))
-        logging.getLogger().addHandler(handler)
-        return handler
+        return run_logger.add_file_handler(self.run_directory
+                                           / self.LOGGING_FILE.format(file_infix))
 
     def reset(self, seed: int = 0):
         """Seeding protocol (reference: evaluation.py:372-376): env reset with
@@ -325,4 +337,5 @@ class Evaluation:
         self.writer.close()
         logging.getLogger().removeHandler(self._log_handler)
         self._log_handler.close()
-        self.env.close()
+        if self.close_env:
+            self.env.close()

@@ -271,9 +271,9 @@ def test_save_load_round_trip_and_greedy_eval(tmp_path):
         next_obs, reward, terminal, truncated, info = env.step(action)
         agent.record(obs, action, reward, next_obs, terminal, info)
         obs = env.reset()[0] if terminal or truncated else next_obs
-    agent.config["checkpoint_format"] = "orbax"  # the JAX package's other format: the same file
+    agent.config["checkpoint_format"] = "orbax"  # as in JAX: a save_pytree directory
     path = agent.save(tmp_path / "model.tar")
-    assert path == tmp_path / "model.tar" and path.is_file()
+    assert path == tmp_path / "model.orbax" and path.is_dir()
     other = torch_load_agent(json.loads(json.dumps(CARTPOLE_AGENT)), env, device="cpu")
     other.initialize_model()
     other.load(path)

@@ -15,7 +15,8 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "rl_agents_tpu"}
 PORT_FILES = sorted(p.relative_to(REPO).as_posix()
-                    for p in (REPO / "rl_agents_torch").rglob("*.py")) + ["chip_smoke.py"]
+                    for p in (REPO / "rl_agents_torch").rglob("*.py")) + ["chip_smoke.py",
+                                                                          "multichip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -47,7 +48,7 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 79
+    assert int(proc.stdout.strip()) >= 88
 
 
 # the modules of the envs and robust-control slice, each held in the checks above
@@ -57,8 +58,18 @@ SLICE_9_MODULES = ("robust/interval.py", "envs/linear.py", "envs/dynamics.py",
                    "agents/robust/robust_epc.py", "agents/robust/constrained_epc.py")
 
 
+# the modules of the distributed learner and harness infrastructure slice
+SLICE_10_MODULES = ("utils/seeding.py", "trainer/metrics.py", "trainer/logger.py",
+                    "trainer/state_sampler.py", "trainer/profiling.py", "trainer/checkpoint.py",
+                    "serving.py", "parallel/distributed.py", "parallel/mesh.py")
+
+
 def test_the_slice_modules_are_checked():
     assert {f"rl_agents_torch/{m}" for m in SLICE_9_MODULES} <= set(PORT_FILES)
+
+
+def test_the_slice_10_modules_are_checked():
+    assert {f"rl_agents_torch/{m}" for m in SLICE_10_MODULES} <= set(PORT_FILES)
 
 
 def test_the_bridge_imports_gymnasium_only_when_a_bridge_is_made():
