@@ -23,20 +23,20 @@ non-zero without its final line:
    launch per episode, checked against the same first 64 trees planned on the
    CPU with the plain KL solve;
 5. the OLOP agent path through the user's entry points: ``load_environment`` /
-   ``load_agent`` / ``Evaluation.test`` for one CartPole episode on the card
-   (one ``kl_bound_indexed_`` launch per planning episode);
+   ``load_agent`` / ``Evaluation.test`` for one CartPole episode on the card,
+   cut to 3 steps (one ``kl_bound_indexed_`` launch per planning episode);
 6. the MCTS batch path at full width: ``mcts_plan_batch`` on CartPole, 4096
    trees, 23 x 8, gamma 0.95, temperature 40, its first 64 trees checked
    against the CPU plan under the same noise; it launches no kernel;
 7. the MCTS agent path: ``CartPoleEnv/MCTSAgent.json`` for one episode, cut to
-   5 steps as the OLOP agent's;
+   3 steps as the OLOP agent's;
 8. the MDP-GapE batch path: ``mdp_gape_plan_batch``, 4096 trees on the garnet
    MDP of ``FiniteMDPEnv/env_garnet.json`` at the sizes of
    ``FiniteMDPEnv/agents/mdp-gape.json`` (confidence 1.0) and again at the
    agent's default confidence 0.9, two dense ``kl_bound`` launches per
    (episode, depth) step, the Newton trips of its chance backups counted,
    and the first 64 trees of a plan on a deterministic garnet checked against
-   the CPU plan under the same noise (3 timed plans, one with a read-back
+   the CPU plan under the same noise (one timed plan, one with a read-back
    every Newton trip and one profiled at confidence 1.0; one timed plan, not
    profiled, at 0.9);
 9. the MDP-GapE agent path: ``mdp-gape.json`` on ``env_garnet.json`` for one
@@ -44,13 +44,15 @@ non-zero without its final line:
 10. the stochastic GBOP batch path: ``gbop_stochastic_plan_batch`` on the
     Sailing domain (``SailingEnv/env.json``, size 8), 4096 trees from random
     starts at the sizes of ``SailingEnv/agents/gbop.json`` (3 episodes x
-    horizon 55, one next-state slot), two dense ``kl_bound`` launches per
-    (episode, depth) step, 330 a plan, its value-iteration sweeps counted and
+    horizon 55, one next-state slot; one timed plan), two dense ``kl_bound``
+    launches per (episode, depth) step, 330 a plan, its value-iteration sweeps
+    counted and
     its first 64 trees checked against the CPU plan under the same noise; then
     the same planner with three next-state slots on 512 trees, one plan, the Newton
     trips of its constrained expectations counted;
 11. the GBOP-D batch path: ``gbop_plan_batch`` on Sailing, 4096 trees, 25
-    expansions (``gbop-d.json``), its Bellman sweeps counted; no kernel;
+    expansions (``gbop-d.json``; one timed plan), its Bellman sweeps counted;
+    no kernel;
 12. the OPD batch path: ``opd_plan_batch`` on CartPole, 4096 trees, 115
     expansions; no kernel;
 13. the Sailing agent paths: ``gbop.json``, ``gbop-d.json`` and ``opd.json`` on
@@ -192,12 +194,31 @@ non-zero without its final line:
 39. a ``save_pytree`` / ``load_pytree`` round trip of phase 36's flagship
     state, bit-equal on the card; a ``trace()`` of one sharded step, its
     Chrome trace written; ``device_memory_stats()``;
-40. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
+40. MCTS on the stochastic garnet of ``env_garnet.json``, every draw
+    injected (the env's too): ``mcts_plan_batch_fused`` at 4096 trees x 23 x
+    8, and ``mcts_prior_plan`` under a per-state table and under a root
+    vector, one timed plan each, the first 64 trees against the CPU plan
+    (actions, counts and children equal, values within 1e-5);
+41. ``FunctionalEnv.rollout`` and ``policy_rollout`` on CartPole (4096 x
+    200) and the uncut highway (512 x 20), against the CPU under the same
+    actions and draws (integer fields equal, floats within 1e-6 over the
+    episodes' live steps);
+42. the display path: an ``Evaluation`` test episode of the KL-OLOP agent on
+    CartPole, 3 steps, with ``display_agent`` and ``display_rewards`` (8
+    ``kl_bound_indexed_`` launches a step), each frame's data, tree 0's
+    plotted edges and the reward history against the same episode on the
+    CPU; phase 17's attention matrix against the CPU; phase 23's BFTQ
+    network's (Qc, Qr) cloud against the CPU's, and the frontier of the
+    card's cloud against the CPU's frontier of the same cloud. This host has
+    neither matplotlib nor pygame, so the drawing itself is tested on the
+    CPU;
+43. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
     last line. The DQN paths, the paths of phases 19-31, the robust control
-    of phase 35 and the learner, serving and checkpoints of phases 36-39
-    launch no hand kernel: their products, softmax, hull, interval
-    predictor, LMI descent and collectives are tensor functions and NCCL
-    calls, as the JAX package computes them outside any Pallas kernel.
+    of phase 35, the learner, serving and checkpoints of phases 36-39 and
+    phases 40 and 41 launch no hand kernel: their products, softmax, hull,
+    interval predictor, LMI descent, collectives and env steps are tensor
+    functions and NCCL calls, as the JAX package computes them outside any
+    Pallas kernel.
 
 Every path is driven with every kernel launch counter set to 0 just before
 and read just after.
@@ -232,9 +253,12 @@ ARENA = 1 + EPISODES * HORIZON * 2  # nodes per tree of the CartPole plan (2 act
 DENSE_LARGE = 1 << 24  # the dense form where bytes should bind
 CPU_SUBSET = 64
 AGENT_CONFIG = {"__class__": "OLOPAgent", "budget": 184, "gamma": GAMMA}
-AGENT_MAX_STEPS = 5  # agent episodes are cut for the time limit (PERF.md §4)
+AGENT_MAX_STEPS = 3  # agent episodes are cut for the time limit (PERF.md §4)
 GARNET_AGENT_STEPS = 3  # of the 20 of env_garnet.json
 PLANS = 3  # timed plans of each batch path
+# cut from 3 for the time limit (PERF.md §4): MDP-GapE at confidence 1.0
+# (phase 8), stochastic GBOP (10) and GBOP-D (11) on Sailing
+GAPE_PLANS = SAILING_PLANS = 1
 # cut to one timed plan for the time limit (PERF.md §4): the highway batch
 # paths (phase 14), the prior planner (20) and closed-loop MCTS (25)
 HW_PLANS = PRIOR_PLANS = CLOSED_LOOP_PLANS = 1
@@ -251,7 +275,7 @@ GAPE_DEFAULT = dict(GAPE, confidence=0.9)
 # (label, sizes, timed plans, a plan with a read-back every trip)
 # (label, sizes, timed plans, a plan with a read-back every Newton trip,
 # profiled): the 0.9 plan's 164k kernels took the profiler about half a minute
-GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE, PLANS, True, True),
+GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE, GAPE_PLANS, True, True),
               ("agent default, confidence 0.9", GAPE_DEFAULT, 1, False, False))
 GAPE_STATES = 16
 # the planner runs while ``episode <= episodes``: episodes + 1 episodes of
@@ -1054,14 +1078,14 @@ def check_gbop_batch_path(dev) -> dict:
     # no warm-up plan: phase 3 ran this planner at these shapes already
     reset_launches()
     reset_sweeps()
-    times = timed_plans(plan)
+    times = timed_plans(plan, SAILING_PLANS)
     launches = read_launches()
-    expect_launches(f"stochastic GBOP batch path, {PLANS} plans", launches,
-                    PLANS * GBOP_KL_LAUNCHES, 0)
+    expect_launches(f"stochastic GBOP batch path, {SAILING_PLANS} plans", launches,
+                    SAILING_PLANS * GBOP_KL_LAUNCHES, 0)
     report_plans(f"gbop_stochastic_plan_batch B={TREES} episodes={E} horizon={H} "
                  f"width={GBOP['width']}", times, TREES * E * H, "sample-steps")
-    print(f"  {launches['kl_bound'] // PLANS} kl_bound launches per plan; {PLANS} plans: "
-          f"{sweep_line(TREES)}")
+    print(f"  {launches['kl_bound'] // SAILING_PLANS} kl_bound launches per plan; "
+          f"{SAILING_PLANS} plans: {sweep_line(TREES)}")
     # one episode of the three profiled: a whole plan's trace (~51k kernels)
     # lost half its records on an H100 (PERF.md §4)
     short = lambda: gbop_stochastic_plan_batch(env, params, states0, obs0, generator, device=dev,
@@ -1137,12 +1161,12 @@ def check_gbop_d_batch_path(dev) -> dict:
     plan()  # warm-up
     reset_launches()
     reset_sweeps()
-    times = timed_plans(plan)
+    times = timed_plans(plan, SAILING_PLANS)
     launches = read_launches()
-    expect_launches(f"GBOP-D batch path, {PLANS} plans", launches, 0, 0)
+    expect_launches(f"GBOP-D batch path, {SAILING_PLANS} plans", launches, 0, 0)
     report_plans(f"gbop_plan_batch B={TREES} expansions={R} arena={arena}", times, TREES * R,
                  "expansions")
-    print(f"  {PLANS} plans: {sweep_line(TREES)}")
+    print(f"  {SAILING_PLANS} plans: {sweep_line(TREES)}")
     profile_plan(plan, host_events=False)
 
     cpu = torch.device("cpu")
@@ -2383,7 +2407,8 @@ def check_bftq(dev) -> dict:
     launches = {k: v + agent_launches[k] for k, v in launches.items()}
     return {"launches": launches, "epoch_ms": ms, "states_per_s": BFTQ_STATES / (ms / 1e3),
             "targets_ms": target_ms, "agent_s": seconds, "agent_bootstrapped_s": calls[-1][2],
-            "agent_target_busy_share": profiled["busy_share"]}
+            "agent_target_busy_share": profiled["busy_share"], "agent": agent,
+            "state": held.state[0].cpu().numpy()}
 
 
 # ---------------------------------------------------------------------------
@@ -2886,7 +2911,9 @@ LMI_STABLE = dict(A0=[[-1.0, 1.0], [0.0, -2.0]], dA=[[[0.0, 0.0], [0.0, 0.1]]], 
 LMI_UNSTABLE = dict(A0=[[0.0, 1.0], [0.0, 0.0]], dA=[[[0.0, 0.0], [0.0, 0.1]]],
                     B=[[0.0], [1.0]])
 LMI_CASES = (("analysis, stable", LMI_STABLE, False, 8000),
-             ("analysis, unstable", LMI_UNSTABLE, False, 2000),
+             # cut from 2,000 steps for the time limit (PERF.md §4): the
+             # unstable system is refused after any number of steps
+             ("analysis, unstable", LMI_UNSTABLE, False, 1000),
              ("synthesis, stable", LMI_STABLE, True, 8000))
 EPC_TEST = {"A": [[0.0, 1.0], [0.0, 0.0]], "B": [[0.0], [1.0]], "D": [[0.0], [1.0]],
             "phi": [[[0.0, 0.0], [0.0, -1.0]]], "sigma": [[1.0, 0.0], [0.0, 1.0]],
@@ -3523,6 +3550,331 @@ def check_checkpoint_and_profiling(dev, states) -> dict:
             "memory": stats}
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: MCTS on a stochastic env under injected draws, the env base's
+# rollouts, and the display path. No new kernel: the display path's KL-OLOP
+# agent launches the indexed KL kernel
+# ---------------------------------------------------------------------------
+
+# Whether this host can draw: a probe of the H100 host found neither
+# matplotlib nor pygame installed, so phase 42 checks what each frame and
+# figure draws as data, and the drawing itself is tested on the CPU
+# (tests/test_torch_graphics.py, tests/test_torch_pygame_viewer.py)
+CHIP_HAS_DRAWING = False
+# floats of a step on the card against the CPU's, relative to max(1, |value|):
+# the card's sin and cos differ from the CPU's by an ulp, 1.9e-06 at 16
+ROLLOUT_TOLERANCE = 1e-6
+CARTPOLE_ROLLOUT = (TREES, 200)  # trees x steps
+HIGHWAY_ROLLOUT = (512, 20)
+DISPLAY_STEPS = 3
+
+
+def check_stochastic_mcts_paths(dev) -> dict:
+    """MCTS on the stochastic garnet of ``env_garnet.json`` (two next states
+    an action), every draw injected: ``mcts_plan_batch_fused`` at 4096 trees
+    x 23 x 8, and ``mcts_prior_plan`` under a per-state table ``[S, A]`` and
+    under a root vector ``[A]`` (the whole vector at a state below A, zeros
+    at A or above); one timed plan each, the first 64 trees against the CPU
+    plan under the same draws (actions, counts and children equal, values
+    within 1e-5)."""
+    from rl_agents_torch.agents.tree_search.mcts_fused import mcts_plan_batch_fused
+    from rl_agents_torch.agents.tree_search.mcts_with_prior import mcts_prior_plan, tabular_prior
+    from rl_agents_torch.envs.base import params_to
+    from rl_agents_torch.utils.noise import gumbel
+
+    env, params, states = garnet_case(dev, 2)
+    on = {dev: params, CPU: params_to(params, CPU)}
+    A, K, S = env.num_actions, 2, env.num_states
+    E, H = EPISODES, HORIZON
+    kw = dict(num_actions=A, episodes=E, horizon=H, gamma=GAMMA, temperature=MCTS_TEMPERATURE)
+    probs = torch.ones(A) / A
+    g = torch.Generator().manual_seed(11)
+    noise, env_noise = gumbel((E, H, 2, A, TREES), g, CPU), gumbel((E, H, TREES, K), g, CPU)
+    prior_noise = gumbel((2, E, H, TREES, A), g, CPU)
+    prior_env_noise = gumbel((2, E, H, TREES, K), g, CPU)
+    rows = torch.softmax(torch.randn((S, A), generator=g) / 0.5, dim=-1)
+    result = {}
+
+    def fused(device, n):
+        return mcts_plan_batch_fused(env, on[device], states(device, n), None, probs, probs,
+                                     noise=noise[..., :n], env_noise=env_noise[:, :, :n],
+                                     device=device, **kw)
+
+    def prior(table):
+        def plan(device, n):
+            s0 = states(device, n)
+            return mcts_prior_plan(env, on[device], s0, env.observe(on[device], s0), None,
+                                   table.to(device), tabular_prior,
+                                   noise=tuple(x[:, :, :n] for x in prior_noise),
+                                   env_noise=tuple(x[:, :, :n] for x in prior_env_noise),
+                                   device=device, **kw)
+        return plan
+
+    starts = states(CPU, CPU_SUBSET).s.numpy()
+    for name, plan, close in (("mcts_fused_garnet", fused, ("value",)),
+                              ("mcts_prior_table_garnet", prior(rows), ("value", "prior")),
+                              ("mcts_prior_root_vector_garnet", prior(rows[5]),
+                               ("value", "prior"))):
+        outs = []
+        reset_launches()
+        times = timed_plans(lambda: outs.append(plan(dev, TREES)), 1)
+        launches = read_launches()
+        expect_launches(name, launches, 0, 0)
+        ms = report_plans(f"{name} B={TREES} episodes={E} horizon={H}, env draws injected",
+                          times, TREES * E * H, "env-steps")
+        got = plan_fields(*outs[0])
+        expect((got["count"][:, 0] == E).all() and np.isfinite(got["value"]).all(),
+               f"{name}: invalid root counts or values")
+        want = plan_fields(*plan(CPU, CPU_SUBSET))
+        same_on_cpu(name, got, want, ("actions", "lengths", "count", "parent", "children"),
+                    close)
+        if name == "mcts_prior_root_vector_garnet":
+            # the root's expansion: the vector below A, zeros at A or above
+            root = got["prior"][:CPU_SUBSET, 1:1 + A]
+            below = starts < A
+            expect(np.array_equal(root[below], np.broadcast_to(rows[5].numpy(),
+                                                               root[below].shape))
+                   and (root[~below] == 0).all() and below.any() and (~below).any(),
+                   f"{name}: the root priors are not the vector below A and zeros above")
+            print(f"  root priors: the vector at {int(below.sum())} start states below A = {A}, "
+                  f"zeros at {int((~below).sum())}")
+        result[name] = {"launches": launches, "ms": ms}
+    return result
+
+
+def rollout_leaves(out) -> dict:
+    """The tensors of a stacked ``StepOut`` by name."""
+    leaves = {f"state.{k}": v for k, v in out.state._asdict().items()}
+    obs = out.obs if isinstance(out.obs, tuple) else (out.obs,)
+    leaves.update({f"obs.{i}": v for i, v in enumerate(obs)})
+    leaves.update(reward=out.reward, terminated=out.terminated, truncated=out.truncated)
+    leaves.update({f"info.{k}": v for k, v in out.info.items() if isinstance(v, torch.Tensor)})
+    return leaves
+
+
+def same_rollout(name: str, got, want, step_again):
+    """The card's rollout ``got`` against the CPU's ``want``: integer and
+    boolean leaves equal at every step, and each step's floats within
+    ROLLOUT_TOLERANCE (relative to max(1, |value|)) of the CPU's when the
+    card steps again from the CPU's
+    state of the step before (``step_again(previous states [T, B])``, one
+    batch of T x B rows). Along a whole rollout the card's ``sin`` and
+    ``cos`` differ from the CPU's by ulps, which a falling CartPole pole
+    amplifies: that drift is printed, not held."""
+    leaves = rollout_leaves(want)
+    drift = {}
+    for key, w in leaves.items():
+        g = rollout_leaves(got)[key].cpu()
+        if w.dtype.is_floating_point:
+            drift[key] = float((g - w).abs().max())
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{name}: {key} differs from the CPU rollout")
+    again = rollout_leaves(step_again())
+    errors = {}
+    for key, w in leaves.items():
+        if key == "reward" or key not in again:
+            continue  # policy_rollout zeroes the rewards after an episode's end
+        g = again[key].cpu().reshape(w.shape)
+        if w.dtype.is_floating_point:
+            errors[key] = float(((g - w).abs() / w.abs().clamp(min=1.0)).max())
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{name}: {key} of a step from the CPU's state differs")
+    worst = max(errors.values())
+    expect(worst <= ROLLOUT_TOLERANCE,
+           f"{name}: a step from the CPU's state differs from the CPU's by {errors}")
+    print(f"{name}: integer and boolean fields equal to the CPU rollout at every step; each "
+          f"step's floats within {worst!r} (relative) of the CPU's from the same state; along "
+          f"the whole rollout the floats drift up to {max(drift.values())!r}")
+
+
+def previous_states(start, stacked):
+    """The state before each step of a stacked rollout, ``[T, B]`` rows
+    flattened to one batch: the start, then each step's state but the last."""
+    return type(start)(*(torch.cat([s0[None], s[:-1]]).flatten(0, 1)
+                         for s0, s in zip(start, stacked)))
+
+
+def check_rollouts(dev) -> dict:
+    """``FunctionalEnv.rollout`` and ``policy_rollout`` on CartPole (4096 x
+    200 steps) and on the uncut highway (512 x 20), the actions and the
+    policy's Gumbel draws made once on the CPU: the card against the CPU
+    (``same_rollout``)."""
+    from rl_agents_torch.envs.base import params_to, policy_rollout
+    from rl_agents_torch.utils.noise import gumbel
+
+    cartpole_env, cartpole_params, cartpole_states = cartpole_case(dev)
+    highway_env, highway_params, highway_states = highway_case(dev)
+    cases = {
+        "cartpole": (cartpole_env, lambda device: cartpole_env.default_params(device),
+                     cartpole_states, CARTPOLE_ROLLOUT,
+                     lambda obs: torch.stack([-10.0 * obs[:, 2], 10.0 * obs[:, 2]], dim=1)),
+        "highway": (highway_env, highway_params, highway_states, HIGHWAY_ROLLOUT,
+                    lambda obs: 3.0 * obs.reshape(obs.shape[0], -1)[:, :HW_ACTIONS]),
+    }
+    g = torch.Generator().manual_seed(12)
+    result = {}
+    for name, (env, params, states, (B, T), logits) in cases.items():
+        A = env.action_space.n
+        actions = torch.randint(0, A, (T, B), generator=g)
+        draws = gumbel((T, B, A), g, CPU)
+        policy = lambda obs, draw: (logits(obs) + draw.to(obs.device)).argmax(dim=1)
+        runs = {
+            f"rollout_{name}": lambda device: env.rollout(params(device), states(device, B),
+                                                          actions.to(device)),
+            f"policy_rollout_{name}": lambda device: policy_rollout(
+                env, policy, params(device), states(device, B), T, policy_noise=draws),
+        }
+        for path, run in runs.items():
+            outs = []
+            reset_launches()
+            times = timed_plans(lambda: outs.append(run(dev)), 1)
+            launches = read_launches()
+            expect_launches(path, launches, 0, 0)
+            print(f"{path} {B} x {T} steps: {times[0]!r} ms, {B * T / (times[0] / 1e3)!r} "
+                  f"env-steps/s")
+            expect(bool(outs[0].done.any()), f"{path}: no episode ended in {T} steps")
+            want = run(CPU)
+            before = params_to(previous_states(states(CPU, B), want.state), dev)
+            if path.startswith("policy"):
+                taken = policy(env.observe(params(dev), before), draws.flatten(0, 1))
+            else:
+                taken = actions.flatten().to(dev)
+            same_rollout(path, outs[0], want, lambda: env.step(params(dev), before, taken))
+            result[path] = {"launches": launches, "ms": times[0]}
+    return result
+
+
+def cpu_drawn_resets(handle, seed: int):
+    """Make the CartPole handle's resets draw their start states from a CPU
+    generator seeded with ``seed``, so that the card and the CPU start from
+    the same states."""
+    functional = handle.functional
+
+    def reset_noise(params, generator, batch=1):
+        draw = torch.rand((batch, 4), generator=torch.Generator().manual_seed(seed))
+        return (draw * 0.1 - 0.05).to(params.gravity.device)
+
+    functional.reset_noise = reset_noise
+
+
+def check_display_path(dev, dqn_agent, dqn_handle, bftq_agent, bftq_state) -> dict:
+    """The display path: one ``Evaluation`` test episode of the KL-OLOP
+    agent (``budget`` 184, 8 episodes a plan) on CartPole, 3 steps, with
+    ``display_agent`` and ``display_rewards``; each step's frame data and
+    tree 0's plotted edges and values, and the reward history, against the
+    same episode on the CPU; phase 17's attention matrix and phase 23's BFTQ
+    cloud and frontier against the CPU on the same weights."""
+    from types import SimpleNamespace
+
+    from rl_agents_torch.agents.tree_search.common import allocation
+    from rl_agents_torch.factory import load_agent, load_environment
+    from rl_agents_torch.graphics.agent_graphics import BFTQGraphics, DQNGraphics
+    from rl_agents_torch.graphics.render import renderer_for
+    from rl_agents_torch.graphics.tree_plot import TreePlot
+    from rl_agents_torch.trainer.evaluation import Evaluation
+
+    cartpole = json.loads((CONFIGS / "CartPoleEnv" / "env.json").read_text())
+    cartpole["max_episode_steps"] = DISPLAY_STEPS
+    per_plan = allocation(AGENT_CONFIG["budget"], GAMMA)[0]
+
+    def episode(device):
+        env = load_environment(dict(cartpole), device=device)
+        cpu_drawn_resets(env, 4)
+        agent = load_agent(dict(AGENT_CONFIG), env, device=device)
+        drawn = {"frames": [], "edges": []}
+
+        def record(episode, env_, agent_, transition, writer):
+            drawn["frames"].append(renderer_for(env_).frame_data(env_))
+            drawn["edges"].append(np.asarray(TreePlot(agent_.last_plan_data).edges()))
+
+        evaluation = Evaluation(env, agent, directory=REPO / "out" / "chip_smoke" / "display",
+                                num_episodes=1, training=False, sim_seed=0,
+                                display_env=CHIP_HAS_DRAWING, display_agent=True,
+                                display_rewards=True, step_callback_fn=record)
+        reset_launches()
+        started = time.time()
+        evaluation.test()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        drawn["seconds"], drawn["launches"] = time.time() - started, read_launches()
+        drawn["rewards"] = evaluation.reward_viewer.rewards
+        if CHIP_HAS_DRAWING:
+            expect(bool(list(evaluation.run_directory.glob("episode-0.gif"))),
+                   "display path: no GIF was written")
+        return drawn
+
+    got = episode(dev)
+    steps = len(got["frames"])
+    expect(steps == DISPLAY_STEPS, f"display path: {steps} steps, expected {DISPLAY_STEPS}")
+    expect_launches("display path (KL-OLOP agent)", got["launches"], 0, per_plan * steps)
+    want = episode(CPU)
+    expect(got["rewards"] == want["rewards"] == [float(steps)],
+           f"display path: reward history {got['rewards']} against the CPU's {want['rewards']}")
+    frame_err = max(abs(g[k] - w[k]) for g, w in zip(got["frames"], want["frames"]) for k in g)
+    expect(frame_err <= ROLLOUT_TOLERANCE,
+           f"display path: frame data differs from the CPU's by {frame_err!r}")
+    for g, w in zip(got["edges"], want["edges"]):
+        expect(g.shape == w.shape and g.shape[0] > 0,
+               f"display path: tree edges {g.shape} against the CPU's {w.shape}")
+    edge_err = max(float(np.abs(g - w).max()) for g, w in zip(got["edges"], want["edges"]))
+    expect(edge_err <= KL_TOLERANCE, f"display path: tree edges differ by {edge_err!r}")
+    print(f"display path: KL-OLOP (budget {AGENT_CONFIG['budget']}, {per_plan} episodes a plan) "
+          f"on CartPole, {steps} steps with display_agent and display_rewards, "
+          f"{got['seconds'] / steps!r} s a step, launches {got['launches']}; frame data within "
+          f"{frame_err!r} of the CPU's, {[len(e) for e in got['edges']]} tree edges a step within "
+          f"{edge_err!r}, reward history {got['rewards']} equal")
+    if not CHIP_HAS_DRAWING:
+        print("  this host has neither matplotlib nor pygame: the frames and figures are held "
+              "as data here, and drawn in tests/test_torch_graphics.py and "
+              "tests/test_torch_pygame_viewer.py on the CPU")
+
+    obs = dqn_handle.reset(seed=0)[0]
+    started = time.time()
+    attention = DQNGraphics.attention_matrix(dqn_agent, obs)
+    attention_s = time.time() - started
+    cpu_dqn = SimpleNamespace(model=copy.deepcopy(dqn_agent.model).cpu(), device=CPU,
+                              train_state=SimpleNamespace(params={
+                                  k: v.cpu() for k, v in dqn_agent.train_state.params.items()}))
+    attention_err = float(np.abs(attention - DQNGraphics.attention_matrix(cpu_dqn, obs)).max())
+    expect(attention_err <= MODEL_TOLERANCE,
+           f"attention matrix: card against CPU {attention_err!r}")
+    print(f"attention matrix of phase 17's agent {attention.shape}: {attention_s!r} s, within "
+          f"{attention_err!r} of the CPU's")
+
+    # the network's cloud on the card against the CPU's; the frontier of the
+    # card's cloud against the frontier of the same cloud on the CPU (a hull
+    # over near-collinear points may keep or drop one of them when its
+    # inputs move by an ulp, as phase 23's trained network shows)
+    bftq = bftq_agent.bftq
+    started = time.time()
+    points = BFTQGraphics.frontier_points(bftq_agent, bftq_state)
+    frontier_s = time.time() - started
+    cpu_bftq = SimpleNamespace(bftq=SimpleNamespace(
+        betas_for_discretisation=bftq.betas_for_discretisation.cpu(),
+        network=copy.deepcopy(bftq.network).cpu(),
+        params={k: v.cpu() for k, v in bftq.params.items()}))
+    cpu_points = BFTQGraphics.frontier_points(cpu_bftq, bftq_state)
+    cloud_err = max(float(np.abs(points[k] - cpu_points[k]).max()) for k in ("q", "qc", "qr"))
+    expect(cloud_err <= BFTQ_TOLERANCE, f"BFTQ cloud: card against CPU {cloud_err!r}")
+    same_cloud = BFTQGraphics.frontier_of(torch.tensor(points["q"]),
+                                          bftq.betas_for_discretisation.cpu())
+    expect(all(points[k].shape == same_cloud[k].shape for k in points),
+           f"BFTQ frontier: {len(points['frontier_qc'])} points against the CPU's "
+           f"{len(same_cloud['frontier_qc'])} on the same cloud")
+    frontier_err = max(float(np.abs(points[k] - same_cloud[k]).max()) for k in points)
+    expect(frontier_err <= BFTQ_TOLERANCE, f"BFTQ frontier: card against CPU {frontier_err!r}")
+    print(f"BFTQ frontier of phase 23's agent: {len(points['qc'])} points, Q within "
+          f"{cloud_err!r} of the CPU network's; {len(points['frontier_qc'])} on the frontier, "
+          f"within {frontier_err!r} of the CPU's frontier of the same cloud, {frontier_s!r} s "
+          f"(the CPU network's own cloud gives {len(cpu_points['frontier_qc'])})")
+    return {"display_olop_agent": {"launches": got["launches"],
+                                   "s_per_step": got["seconds"] / steps},
+            "attention_matrix": {"launches": {"kl_bound": 0, "kl_bound_indexed_": 0},
+                                 "s": attention_s},
+            "bftq_frontier": {"launches": {"kl_bound": 0, "kl_bound_indexed_": 0},
+                              "s": frontier_s}}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -3629,6 +3981,7 @@ def main():
     slice7["ftq_highway_agent"] = check_ftq(dev)
     phase("23. BFTQ")
     slice7["bftq"] = check_bftq(dev)
+    bftq_agent, bftq_state = slice7["bftq"].pop("agent"), slice7["bftq"].pop("state")
     for path, result in slice7.items():
         paths[path] = result.pop("launches")
     print(json.dumps({"slice7": slice7}))
@@ -3694,13 +4047,26 @@ def main():
     for path, result in slice10.items():
         paths[path] = result.pop("launches")
     print(json.dumps({"slice10": slice10}))
+    slice11 = {}
+    phase("40. MCTS on a stochastic env, draws injected")
+    print(card)
+    slice11.update(check_stochastic_mcts_paths(dev))
+    phase("41. rollouts")
+    print(card)
+    slice11.update(check_rollouts(dev))
+    phase("42. the display path")
+    print(card)
+    slice11.update(check_display_path(dev, dqn_agent, dqn_handle, bftq_agent, bftq_state))
+    for path, result in slice11.items():
+        paths[path] = result.pop("launches")
+    print(json.dumps({"slice11": slice11}))
     for kernel in kernels:
         kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
         if kernel["launches"] == 0:
             raise AssertionError(f"no path launched {kernel['name']}")
 
-    phase("40. summary")
+    phase("43. summary")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -129,6 +129,7 @@ class AbstractTreeSearchAgent(AbstractAgent):
             actions = self.planner_plan(env, observation)
         else:
             actions = self.previous_actions[1:]
+        self.write_tree()
         self.previous_actions = actions
         return actions
 
@@ -164,6 +165,15 @@ class AbstractTreeSearchAgent(AbstractAgent):
 
     def record(self, state, action, reward, next_state, done, info):
         pass
+
+    def write_tree(self):
+        """With ``display_tree``, plot tree 0 of the last plan to the writer
+        (the step count as its epoch)."""
+        if self.config.get("display_tree") and self.writer and self.last_plan_data is not None:
+            from rl_agents_torch.graphics.tree_plot import TreePlot
+
+            TreePlot(self.last_plan_data, max_depth=6).plot_to_writer(self.writer,
+                                                                      epoch=self.steps)
 
     def get_plan_list(self, actions, length) -> List[int]:
         actions = actions.cpu().numpy()

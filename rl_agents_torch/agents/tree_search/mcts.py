@@ -16,8 +16,10 @@ tree, as in the JAX package's single-tree planner. Nothing inside the episode
 loop reads a value back to the host.
 
 Randomness is Gumbel noise: an argmax over ``logits + noise`` breaks UCT ties
-and draws rollout actions. The caller may inject the noise; otherwise it is
-drawn from a ``torch.Generator``.
+and draws rollout actions. A stochastic env's own draw of each step
+(``env_noise``) is laid out as the JAX package splits a key for every env
+step of the descent and of the rollout. The caller may inject either;
+otherwise it is drawn from a ``torch.Generator``.
 
 Budget allocation into (episodes, horizon) follows OLOP (mcts.py:116-118).
 """
@@ -99,8 +101,22 @@ def _where_state(mask, new, old):
                        for n, o in zip(new, old)))
 
 
+def env_noise_pair(env_noise, device):
+    """``(descend, rollout)`` env draws, each ``[episodes, H, B, ...]``, as
+    tensors on ``device``; ``(None, None)`` when none is injected."""
+    if env_noise is None:
+        return None, None
+    return tuple(noise_tensor(n, device) for n in env_noise)
+
+
+def step_noise(env_noise, episode: int, step: int):
+    """The env's draw at ``step`` of ``episode``, or None (then the env draws
+    from the generator)."""
+    return None if env_noise is None else env_noise[episode, step]
+
+
 def _mcts_episodes(env, params, tree: MCTSTree, states0, generator, prior_probs, rollout_probs,
-                   num_actions, episodes, horizon, gamma, temperature, noise):
+                   num_actions, episodes, horizon, gamma, temperature, noise, env_noise=None):
     """The MCTS episode loop (descend/expand/rollout/backup), in place on the
     tensors of ``tree``."""
     A, H, E = num_actions, horizon, episodes
@@ -116,6 +132,7 @@ def _mcts_episodes(env, params, tree: MCTSTree, states0, generator, prior_probs,
     rollout_logits = torch.log(rollout_probs.to(device=device, dtype=f32))
     if noise is not None:
         descend_noise, rollout_noise = (noise_tensor(n, device) for n in noise)
+    descend_env, rollout_env = env_noise_pair(env_noise, device)
 
     for episode in range(E):
         if noise is None:
@@ -140,7 +157,8 @@ def _mcts_episodes(env, params, tree: MCTSTree, states0, generator, prior_probs,
             scores = value.gather(1, chs) + temperature * n_children * prior.gather(1, chs) / (
                 count.gather(1, chs).to(f32) + 1.0)
             action = _masked_random_argmax(descend_g[step], scores, valid)
-            out = env.transition(params, state, action, generator)
+            out = env.transition(params, state, action, generator,
+                                 step_noise(descend_env, episode, step))
             # total + gamma ** depth * reward is one fused multiply-add in the JAX package
             new_total = fma(discount[depth], out.reward.to(f32), total)
             node = torch.where(active, ch.gather(1, action[:, None]).squeeze(1), node)
@@ -169,7 +187,8 @@ def _mcts_episodes(env, params, tree: MCTSTree, states0, generator, prior_probs,
         roll_state, h, rolled, roll_terminal = state, depth, total, terminal
         for step in range(H):
             action = (rollout_logits + rollout_g[step]).argmax(dim=1)
-            out = env.transition(params, roll_state, action, generator)
+            out = env.transition(params, roll_state, action, generator,
+                                 step_noise(rollout_env, episode, step))
             live = (h < H) & ~roll_terminal
             rolled = rolled + torch.where(live, discount[h] * out.reward.to(f32), 0.0)
             roll_state = _where_state(live, out.state, roll_state)
@@ -215,7 +234,7 @@ def _extract_plan(tree: MCTSTree, horizon: int):
 
 def mcts_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | None,
               prior_probs, rollout_probs, num_actions: int, episodes: int, horizon: int,
-              gamma: float, temperature: float, noise=None, device="cuda"):
+              gamma: float, temperature: float, noise=None, env_noise=None, device="cuda"):
     """Plan B trees at once from ``states0`` (a state NamedTuple with a leading
     batch dim). Returns ``(actions [B, H] with -1 past the plan, lengths [B],
     MCTSTree)``.
@@ -225,6 +244,12 @@ def mcts_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
     descent step at depth ``d`` and ``rollout[e, i]`` draws the ``i``-th
     rollout action of episode ``e``. Without it both are drawn from
     ``generator``.
+
+    ``env_noise`` is a pair ``(descend, rollout)`` of a stochastic env's own
+    draws, each ``[episodes, H, B, ...]`` with the step noise the env's
+    ``step`` takes: ``descend[e, d]`` for the transition at depth ``d`` of the
+    descent, ``rollout[e, i]`` for the ``i``-th rollout step (the JAX package
+    splits one key for each). Without it the env draws from ``generator``.
     """
     device = resolve_device(device)
     params = params_to(params, device)
@@ -232,7 +257,7 @@ def mcts_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
     B = states0[0].shape[0]
     tree = _init_mcts_tree(B, 1 + episodes * num_actions, num_actions, device)
     tree = _mcts_episodes(env, params, tree, states0, generator, prior_probs, rollout_probs,
-                          num_actions, episodes, horizon, gamma, temperature, noise)
+                          num_actions, episodes, horizon, gamma, temperature, noise, env_noise)
     actions, lengths = _extract_plan(tree, horizon)
     return actions, lengths, tree
 
@@ -240,7 +265,7 @@ def mcts_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
 def mcts_plan_continue(env: FunctionalEnv, params, tree: MCTSTree, states0,
                        generator: torch.Generator | None, prior_probs, rollout_probs,
                        num_actions: int, episodes: int, horizon: int, gamma: float,
-                       temperature: float, noise=None, device="cuda"):
+                       temperature: float, noise=None, env_noise=None, device="cuda"):
     """Continue MCTS in carried (re-rooted) arenas, the reference's plan()
     after step_by_prior (mcts.py:179-200): episodes descend from the *current*
     env state through the carried statistics. Each arena must have spare
@@ -251,7 +276,7 @@ def mcts_plan_continue(env: FunctionalEnv, params, tree: MCTSTree, states0,
     states0 = params_to(states0, device)
     tree = MCTSTree(*(t.to(device).clone() for t in tree))
     tree = _mcts_episodes(env, params, tree, states0, generator, prior_probs, rollout_probs,
-                          num_actions, episodes, horizon, gamma, temperature, noise)
+                          num_actions, episodes, horizon, gamma, temperature, noise, env_noise)
     actions, lengths = _extract_plan(tree, horizon)
     return actions, lengths, tree
 
@@ -316,27 +341,28 @@ def mcts_grow_arena(tree: MCTSTree, extra: int) -> MCTSTree:
 
 def mcts_plan_batch(env, params, states0, generator, prior_probs, rollout_probs,
                     num_actions, episodes, horizon, gamma, temperature, noise=None,
-                    device="cuda"):
+                    env_noise=None, device="cuda"):
     """Batched MCTS over the leading tree axis: the fused planner of
-    ``mcts_fused.py``, whose noise layout ``[episodes, H, 2, A, B]`` it takes."""
+    ``mcts_fused.py``, whose noise layouts (``[episodes, H, 2, A, B]``, and
+    ``[episodes, H, B, ...]`` for the env) it takes."""
     from rl_agents_torch.agents.tree_search.mcts_fused import mcts_plan_batch_fused
 
     return mcts_plan_batch_fused(env, params, states0, generator, prior_probs, rollout_probs,
                                  num_actions=num_actions, episodes=episodes, horizon=horizon,
                                  gamma=gamma, temperature=temperature, noise=noise,
-                                 device=device)
+                                 env_noise=env_noise, device=device)
 
 
 def mcts_plan_batch_vmap(env, params, states0, generator, prior_probs, rollout_probs,
                          num_actions, episodes, horizon, gamma, temperature, noise=None,
-                         device="cuda"):
+                         env_noise=None, device="cuda"):
     """The reference loop structure over a batch of trees, kept for
     cross-validation against the fused planner. The JAX package vmaps its
     single-tree ``mcts_plan`` here; this package's ``mcts_plan`` is batch-first
     already."""
     return mcts_plan(env, params, states0, generator, prior_probs, rollout_probs,
                      num_actions=num_actions, episodes=episodes, horizon=horizon, gamma=gamma,
-                     temperature=temperature, noise=noise, device=device)
+                     temperature=temperature, noise=noise, env_noise=env_noise, device=device)
 
 
 class MCTSAgent(AbstractTreeSearchAgent):

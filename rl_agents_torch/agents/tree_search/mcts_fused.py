@@ -35,6 +35,7 @@ from rl_agents_torch.agents.tree_search.mcts import (
     discount_table,
     gumbel,
     noise_tensor,
+    step_noise,
 )
 from rl_agents_torch.envs.base import params_to
 from rl_agents_torch.utils.device import resolve_device
@@ -49,12 +50,17 @@ class _Arena(NamedTuple):
 
 def mcts_plan_batch_fused(env, params, states0, generator: torch.Generator | None, prior_probs,
                           rollout_probs, num_actions: int, episodes: int, horizon: int,
-                          gamma: float, temperature: float, noise=None, device="cuda"):
+                          gamma: float, temperature: float, noise=None, env_noise=None,
+                          device="cuda"):
     """Plan for B independent trees; returns (actions [B, H], lengths [B], tree).
 
     ``noise`` is Gumbel noise ``[episodes, H, 2, A, B]``: at step ``h`` of
     episode ``e``, ``noise[e, h, 0]`` breaks UCT ties and ``noise[e, h, 1]``
     draws the rollout action. Without it, it is drawn from ``generator``.
+    ``env_noise`` ``[episodes, H, B, ...]`` is a stochastic env's own draw
+    of each step (the step noise its ``step`` takes; the JAX package splits
+    one key a tree at every step); without it the env draws from
+    ``generator``.
 
     The returned tree is an ``MCTSTree`` view of the arena (children rebuilt
     from first_child; slots are episode-indexed rather than
@@ -79,6 +85,8 @@ def mcts_plan_batch_fused(env, params, states0, generator: torch.Generator | Non
         noise = noise_tensor(noise, device)
     elif generator is None:
         raise ValueError("mcts_plan_batch_fused needs a generator or noise")
+    if env_noise is not None:
+        env_noise = noise_tensor(env_noise, device)
 
     arena = _Arena(first_child=torch.full((B, N), -1, dtype=i64, device=device),
                    count=torch.zeros((B, N), dtype=f32, device=device),
@@ -118,7 +126,8 @@ def mcts_plan_batch_fused(env, params, states0, generator: torch.Generator | Non
 
             # -- env step (masked once terminal)
             live = ~terminal
-            out = env.transition(params, state, action, generator)
+            out = env.transition(params, state, action, generator,
+                                 step_noise(env_noise, episode, h))
             total = total + torch.where(live, discount[h] * out.reward.to(f32), 0.0)
             state = _where_state(live, out.state, state)
             terminal = terminal | (live & out.terminated)

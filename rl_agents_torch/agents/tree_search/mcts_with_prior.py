@@ -12,7 +12,9 @@ rollout and backup is a fixed number of masked steps. Randomness is Gumbel
 noise, injected or drawn from a ``torch.Generator``: ``noise[0][e, d]``
 breaks the descent's ties at depth d of episode e and ``noise[1][e, i]``
 draws the i-th rollout action, ``argmax(log(max(p, 1e-12)) + noise)``, which
-is ``jax.random.categorical`` of the same key.
+is ``jax.random.categorical`` of the same key. A stochastic env's own draws
+are ``env_noise``, laid out as the JAX package splits a key for every env
+step.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from rl_agents_torch.agents.tree_search.mcts import (
     _masked_random_argmax,
     _where_state,
     discount_table,
+    env_noise_pair,
+    step_noise,
 )
 from rl_agents_torch.envs.base import Discrete, FunctionalEnv, params_to
 from rl_agents_torch.utils.device import resolve_device
@@ -43,14 +47,17 @@ def _where_obs(mask, new, old):
 
 def mcts_prior_plan(env: FunctionalEnv, params, states0, obs0, generator: torch.Generator | None,
                     prior_params, prior_fn: Callable, num_actions: int, episodes: int,
-                    horizon: int, gamma: float, temperature: float, noise=None, device="cuda"):
+                    horizon: int, gamma: float, temperature: float, noise=None, env_noise=None,
+                    device="cuda"):
     """Plan B trees at once from ``states0`` (a state NamedTuple with a
     leading batch axis) whose observations are ``obs0 [B, ...]``, with the
     expansion priors and rollout distributions of ``prior_fn``. Returns
     ``(actions [B, H] with -1 past the plan, lengths [B], MCTSTree)``.
     ``noise`` is ``(descend, rollout)``, each ``[episodes, H, B, A]``; without
-    it both are drawn from ``generator``. A stochastic env draws its own
-    randomness from ``generator``."""
+    it both are drawn from ``generator``. ``env_noise`` is ``(descend,
+    rollout)``, each ``[episodes, H, B, ...]``, a stochastic env's own draw of
+    each descent and rollout step; without it the env draws from
+    ``generator``."""
     device = resolve_device(device)
     params = params_to(params, device)
     states0 = params_to(states0, device)
@@ -66,6 +73,7 @@ def mcts_prior_plan(env: FunctionalEnv, params, states0, obs0, generator: torch.
     temperature = torch.tensor(temperature, dtype=f32, device=device)
     if noise is not None:
         descend_noise, rollout_noise = (noise_tensor(n, device) for n in noise)
+    descend_env, rollout_env = env_noise_pair(env_noise, device)
     forwards = 0
 
     for episode in range(E):
@@ -91,7 +99,8 @@ def mcts_prior_plan(env: FunctionalEnv, params, states0, obs0, generator: torch.
             scores = value.gather(1, chs) + temperature * n_children * prior.gather(1, chs) / (
                 count.gather(1, chs).to(f32) + 1.0)
             action = _masked_random_argmax(descend_g[step], scores, valid)
-            out = env.step(params, state, action, generator)
+            out = env.step(params, state, action, generator,
+                           step_noise(descend_env, episode, step))
             # total + gamma ** depth * reward is one fused multiply-add in the JAX package
             new_total = fma(discount[depth], out.reward.to(f32), total)
             node = torch.where(active, ch.gather(1, action[:, None]).squeeze(1), node)
@@ -122,7 +131,8 @@ def mcts_prior_plan(env: FunctionalEnv, params, states0, obs0, generator: torch.
             logits = torch.log(torch.clamp(prior_fn(prior_params, roll_obs).to(f32), min=1e-12))
             forwards += 1
             action = (logits + rollout_g[step]).argmax(dim=1)
-            out = env.step(params, roll_state, action, generator)
+            out = env.step(params, roll_state, action, generator,
+                           step_noise(rollout_env, episode, step))
             live = (h < H) & ~roll_terminal
             rolled = rolled + torch.where(live, discount[h] * out.reward.to(f32), 0.0)
             roll_state = _where_state(live, out.state, roll_state)
@@ -169,10 +179,18 @@ def dqn_prior(model: torch.nn.Module, temperature: float, obs_dim: int) -> Calla
 
 def tabular_prior(table, obs):
     """``prior_fn`` of a per-state table ``[S, A]`` for index observations:
-    the row of each tree's state, zeros for an index outside the table."""
+    the row of each tree's state, zeros for an index outside the table.
+
+    A 1-D table ``[A]`` is the root vector the agent builds for a prior agent
+    without ``state_action_value``. The JAX package's one-hot sum over its
+    entries gives the whole vector at an index below A and zeros at A or
+    above; the port keeps those zeros, a latent defect of the JAX package
+    (ROADMAP.md §3)."""
     S = table.shape[0]
     index = obs.reshape(-1).to(torch.int64)
     inside = ((index >= 0) & (index < S))[:, None]
+    if table.dim() == 1:
+        return torch.where(inside, table.expand(index.shape[0], S), 0.0)
     return torch.where(inside, table[index.clamp(0, S - 1)], 0.0)
 
 

@@ -9,6 +9,12 @@ functions over NamedTuples of tensors that carry a leading batch dimension:
 A stochastic ``step`` takes its randomness from ``noise`` when the caller
 injects it, and draws it from ``generator`` otherwise.
 
+The spaces sample from a ``torch.Generator`` or replay the JAX package's
+draw from a raw threefry key (``utils/noise.py``). ``FunctionalEnv.rollout``,
+``vector_step``, ``vector_reset`` and ``policy_rollout`` are the JAX
+package's helpers over the batch-first envs: one batch step per time step,
+each step's draws injected or taken from a generator.
+
 "Forking" a simulation is carrying the state value, and one ``step`` over
 ``[B]`` states replaces the JAX package's ``vmap``. ``EnvHandle`` adapts the
 pure core to the object-style harness/agent API (act/record loops, seeding
@@ -17,17 +23,32 @@ protocol) with a batch of one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from rl_agents_torch.utils.device import resolve_device
+from rl_agents_torch.utils.noise import threefry_randint, threefry_split, threefry_uniform
+
+
+def _generator_device(generator: torch.Generator) -> torch.device:
+    if generator is None:
+        raise ValueError("a space's sample needs a generator or a key")
+    return generator.device
 
 
 @dataclasses.dataclass(frozen=True)
 class Discrete:
     n: int
+
+    def sample(self, generator: torch.Generator | None = None, key=None) -> torch.Tensor:
+        """An action in ``[0, n)``: drawn from ``generator``, or JAX's
+        ``randint(key, (), 0, n)`` for a raw threefry ``key``."""
+        if key is not None:
+            return torch.tensor(threefry_randint(key, self.n))
+        return torch.randint(0, self.n, (), generator=generator,
+                             device=_generator_device(generator))
 
     @property
     def shape(self):
@@ -40,11 +61,35 @@ class Box:
     high: Any
     shape: Tuple[int, ...]
 
+    def sample(self, generator: torch.Generator | None = None, key=None) -> torch.Tensor:
+        """A uniform point of the box, an infinite bound taken at +-1e3 as in
+        the JAX package: drawn from ``generator``, or JAX's ``uniform`` for a
+        raw threefry ``key``."""
+        low = np.nan_to_num(np.asarray(self.low, np.float32), neginf=-1e3)
+        high = np.nan_to_num(np.asarray(self.high, np.float32), posinf=1e3)
+        if key is not None:
+            return torch.tensor(threefry_uniform(key, self.shape, low, high))
+        device = _generator_device(generator)
+        u = torch.rand(self.shape, generator=generator, device=device)
+        low, high = torch.tensor(low, device=device), torch.tensor(high, device=device)
+        return torch.maximum(low, u * (high - low) + low)
+
 
 @dataclasses.dataclass(frozen=True)
 class TupleSpace:
     """One space per controlled agent (multi-agent actions and observations)."""
     spaces: Tuple[Any, ...]
+
+    def sample(self, generator: torch.Generator | None = None, key=None) -> tuple:
+        """One sample of each space: from ``generator`` in turn, or under the
+        keys of JAX's ``split(key, len(spaces))``."""
+        if key is not None:
+            keys = threefry_split(key, len(self.spaces))
+            return tuple(s.sample(key=k) for s, k in zip(self.spaces, keys))
+        return tuple(s.sample(generator) for s in self.spaces)
+
+    def __len__(self):
+        return len(self.spaces)
 
     @property
     def shape(self):
@@ -60,6 +105,24 @@ class StepOut(NamedTuple):
     terminated: Any
     truncated: Any
     info: Dict[str, Any]
+
+    @property
+    def done(self):
+        return self.terminated | self.truncated
+
+
+def stack(items: list):
+    """Stack a list of like values (tensors, NamedTuples or tuples of them,
+    dicts of them) along a new leading axis."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, dict):
+        return {k: stack([item[k] for item in items]) for k in first}
+    if isinstance(first, tuple):
+        fields = [stack(list(column)) for column in zip(*items)]
+        return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+    return torch.as_tensor(np.asarray(items))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +188,19 @@ class FunctionalEnv:
     def observation_space(self) -> Discrete | Box:
         raise NotImplementedError
 
+    def rollout(self, params, state, actions, generator: torch.Generator | None = None,
+                noise=None) -> StepOut:
+        """Step ``actions [T, B, ...]`` from ``state``, one batch step a time
+        step; ``noise [T, B, ...]``, when given, is the env's own draw of each
+        step (the JAX package splits one key a step). Returns the ``T`` steps'
+        outputs stacked on a leading axis."""
+        outs = []
+        for t, action in enumerate(actions):
+            out = self.step(params, state, action, generator, None if noise is None else noise[t])
+            state = out.state
+            outs.append(out)
+        return stack(outs)
+
     def preprocess(self, name: str, args) -> "FunctionalEnv":
         """Named env preprocessors (reference: factory.py:97-116)."""
         raise ValueError(f"{type(self).__name__} has no preprocessor {name!r}")
@@ -156,12 +232,24 @@ class EnvHandle:
         return self.functional.spec
 
     @property
+    def unwrapped(self):
+        return self
+
+    @property
     def action_space(self):
         return self.functional.action_space
 
     @property
     def observation_space(self):
         return self.functional.observation_space
+
+    def get_available_actions(self):
+        """Discrete action ids at the current state (the reference's planners
+        call this on env copies, e.g. mcts_dpw.py:119-126)."""
+        space = self.functional.action_space
+        if hasattr(space, "spaces"):  # multi-agent: one agent's discrete set
+            space = space.spaces[0]
+        return list(range(space.n))
 
     def seed(self, seed: int | None = None):
         if seed is not None:
@@ -197,6 +285,11 @@ class EnvHandle:
         if fn is None:
             raise TypeError(f"{type(self.functional).__name__} has no finite-MDP view")
         return fn(self.params, self.state)
+
+    def render(self):
+        """Nothing, as in the JAX package: frames come from
+        ``graphics/render.py`` and ``graphics/pygame_viewer.py``."""
+        return None
 
     def close(self):
         pass
@@ -239,3 +332,38 @@ def _first(obs):
     if isinstance(obs, dict):
         return {k: v[0].cpu().numpy() for k, v in obs.items()}
     return obs[0].cpu().numpy()
+
+
+def vector_step(env: FunctionalEnv) -> Callable:
+    """The batched step ``(params, states, actions, generator, noise) ->
+    StepOut`` over a leading batch axis: the env's own ``step``, which is
+    batch-first (the JAX package vmaps its single-state step here)."""
+    return env.step
+
+
+def vector_reset(env: FunctionalEnv) -> Callable:
+    """The batched reset ``(params, generator, batch) -> (states, obs)``."""
+    return env.reset
+
+
+def policy_rollout(env: FunctionalEnv, policy: Callable, params, state, horizon: int,
+                   generator: torch.Generator | None = None, policy_noise=None,
+                   env_noise=None) -> StepOut:
+    """Roll ``policy(obs, draw) -> actions [B]`` from ``state`` for ``horizon``
+    batch steps. ``draw`` is ``policy_noise[t]`` (None when not given) and the
+    env steps with ``env_noise[t]`` or draws from ``generator``: the JAX
+    package splits its key into a policy key and a step key at every step.
+
+    Returns the stacked ``StepOut``s; a row's rewards after its episode ends
+    are zeroed (a ``live`` flag is carried, as in the JAX package)."""
+    obs = env.observe(params, state)
+    live = torch.ones(state[0].shape[0], dtype=torch.bool, device=state[0].device)
+    outs = []
+    for t in range(horizon):
+        action = policy(obs, None if policy_noise is None else policy_noise[t])
+        out = env.step(params, state, action, generator,
+                       None if env_noise is None else env_noise[t])
+        outs.append(out._replace(reward=torch.where(live, out.reward, 0.0)))
+        live = live & ~out.done
+        state, obs = out.state, out.obs
+    return stack(outs)

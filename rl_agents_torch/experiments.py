@@ -16,9 +16,9 @@ present; pass ``--device cpu`` to run on the CPU. A benchmark runs every
 environment with every agent (its ``{"base_agent", "sweep"}`` entries
 expanded), one after the other or in ``--processes`` worker processes
 started with ``spawn`` (a forked child cannot use CUDA), and writes the run
-directories to ``<directory>/benchmark_summary.<time>.json``. The port has
-no display yet (the graphics slice): ``--no-display`` is accepted so that
-the JAX CLI's command lines run unchanged.
+directories to ``<directory>/benchmark_summary.<time>.json``. ``evaluate``
+displays the env (GIFs of its episodes and a live viewer, headless without
+a display) unless ``--no-display`` is given, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ def build_parser():
     ev.add_argument("--name-from-config", action="store_true",
                     help="name the run directory after the agent config")
     ev.add_argument("--no-display", action="store_true",
-                    help="accepted for the JAX CLI's command lines; the port displays nothing")
+                    help="record no episode GIFs and open no viewer")
 
     bench = sub.add_parser("benchmark", parents=[common],
                            help="run a benchmark of agents x environments")
@@ -102,7 +102,8 @@ def evaluate(environment_config, agent_config, args, show: bool = True,
     training = getattr(args, "train", False)  # a benchmark tests, as in JAX
     evaluation = Evaluation(env, agent, directory=args.directory, run_directory=run_directory,
                             num_episodes=args.episodes, training=training,
-                            sim_seed=args.seed, recover=recover)
+                            sim_seed=args.seed, recover=recover,
+                            display_env=not getattr(args, "no_display", True))
     if training:
         evaluation.train()
     else:

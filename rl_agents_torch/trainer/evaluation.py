@@ -12,8 +12,14 @@ appended to ``episodes.jsonl`` in the run directory and, when tensorboardX
 is installed, written as scalars (``trainer/metrics.py::NullWriter``
 otherwise).
 
-Not ported yet: the viewers and recorders (``display_env``,
-``display_agent``, ``display_rewards``), which wait for the graphics slice.
+Display (reference: evaluation.py:79-109): ``display_rewards`` redraws each
+episode's total reward (``trainer/graphics.py``); ``display_env`` records
+GIFs of the test episodes and of the training episodes on the cubic schedule
+(``graphics/render.py``, CartPole and highway) and opens a live pygame
+viewer (``graphics/pygame_viewer.py``, headless without a display), on which
+``display_agent`` draws the agent's overlay each step. matplotlib and
+pygame are imported only then; without pygame the live viewer is left out
+with a warning.
 """
 from __future__ import annotations
 
@@ -76,10 +82,6 @@ class Evaluation:
         """``step_callback_fn(episode, env, agent, transition, writer)`` is
         called after every env step with ``transition = (observation, action,
         reward, next_observation, done, truncated, info)``."""
-        if display_env or display_agent or display_rewards:
-            raise NotImplementedError(
-                "display_env, display_agent and display_rewards: the viewers and recorders "
-                "are not ported yet (slice 11, the graphics)")
         self.env = env
         self.agent = agent
         self.num_episodes = num_episodes
@@ -88,6 +90,7 @@ class Evaluation:
             sim_seed = int(np.random.default_rng().integers(0, 1_000_000))
         self.sim_seed = sim_seed
         self.close_env = close_env
+        self.display_env = display_env
         self.step_callback_fn = step_callback_fn
 
         self.directory = Path(directory or self.default_directory)
@@ -107,6 +110,36 @@ class Evaluation:
         self.recover = recover
         if self.recover:
             self.load_agent_model(self.recover)
+
+        self.reward_viewer = None
+        if display_rewards:
+            from rl_agents_torch.trainer.graphics import RewardViewer
+
+            self.reward_viewer = RewardViewer()
+        self.recorder = None
+        if display_env:
+            from rl_agents_torch.graphics.render import EpisodeRecorder, renderer_for
+
+            if renderer_for(self.env) is not None:
+                self.recorder = EpisodeRecorder(self.run_directory)
+        # the live viewer with agent overlays (reference: evaluation.py:100-109
+        # hooks AgentGraphics.display into env.viewer.set_agent_display)
+        self.viewer = None
+        if display_env and hasattr(self.env, "functional"):
+            try:
+                from rl_agents_torch.graphics.pygame_viewer import (
+                    PygameViewer,
+                    default_agent_display,
+                )
+
+                self.viewer = PygameViewer(self.env)
+            except ImportError:
+                logger.warning("pygame unavailable; live viewer disabled")
+            else:
+                if display_agent:
+                    self.viewer.set_agent_display(
+                        lambda agent_surface, sim_surface: default_agent_display(
+                            self.agent, agent_surface, sim_surface))
 
     def _make_writer(self):
         try:
@@ -144,12 +177,19 @@ class Evaluation:
         for self.episode in range(self.num_episodes):
             terminal = False
             self.reset(seed=self.episode)
+            record = self.recorder is not None and (
+                not self.training or capped_cubic_video_schedule(self.episode))
             rewards = []
             start_time = time.time()
             while not terminal:
                 reward, terminal = self.step()
                 rewards.append(reward)
-            self.after_all_episodes(self.episode, rewards, time.time() - start_time)
+                if record:
+                    self.recorder.capture(self.env)
+            duration = time.time() - start_time
+            if record:
+                self.recorder.save(self.episode)
+            self.after_all_episodes(self.episode, rewards, duration)
             self.after_some_episodes(self.episode, rewards)
 
     def run_batched_episodes(self):
@@ -225,6 +265,8 @@ class Evaluation:
             self.agent.record(previous_observation, action, reward, self.observation, done, info)
         except NotImplementedError:
             pass
+        if self.viewer is not None:
+            self.viewer.display(agent=self.agent)
         return float(reward), terminal
 
     def after_all_episodes(self, episode: int, rewards: List[float], duration: float):
@@ -245,6 +287,8 @@ class Evaluation:
                                 "total_reward": total, "return": discounted,
                                 "duration": duration}) + "\n")
         self.episode_rewards.append(total)
+        if self.reward_viewer:
+            self.reward_viewer.update(total)
         logger.info("Episode %d score: %.1f", episode, total)
 
     def after_some_episodes(self, episode: int, rewards,
@@ -337,5 +381,7 @@ class Evaluation:
         self.writer.close()
         logging.getLogger().removeHandler(self._log_handler)
         self._log_handler.close()
+        if self.viewer is not None:
+            self.viewer.close()
         if self.close_env:
             self.env.close()

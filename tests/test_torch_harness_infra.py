@@ -164,10 +164,50 @@ def test_evaluation_arguments(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["display_env", "display_agent", "display_rewards"])
-def test_display_arguments_name_the_slice_that_ports_them(flag, tmp_path):
-    env, agent = _cartpole_agent()
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        Evaluation(env, agent, directory=tmp_path, **{flag: True})
+def test_display_arguments_name_the_slice_that_ports_them(flag, tmp_path, monkeypatch):
+    """Each display flag builds what it names, as in the JAX harness:
+    ``display_env`` the episode recorder and the live viewer,
+    ``display_agent`` (with ``display_env``) the viewer's agent overlay,
+    ``display_rewards`` the reward viewer; the CLI's ``--no-display`` turns
+    ``display_env`` off."""
+    monkeypatch.setenv("SDL_VIDEODRIVER", "dummy")
+    env, agent = _cartpole_agent(steps=3)
+    kwargs = {flag: True}
+    if flag == "display_agent":
+        kwargs["display_env"] = True
+    evaluation = Evaluation(env, agent, directory=tmp_path, num_episodes=1, sim_seed=0,
+                            **kwargs)
+    built = {"recorder": evaluation.recorder is not None,
+             "viewer": evaluation.viewer is not None,
+             "overlay": evaluation.viewer is not None
+             and evaluation.viewer.agent_display is not None,
+             "reward_viewer": evaluation.reward_viewer is not None}
+    want = {"display_env": {"recorder", "viewer"},
+            "display_agent": {"recorder", "viewer", "overlay"},
+            "display_rewards": {"reward_viewer"}}[flag]
+    assert {k for k, v in built.items() if v} == want
+    evaluation.test()
+    if flag == "display_rewards":
+        assert evaluation.reward_viewer.rewards == evaluation.episode_rewards == [3.0]
+    else:  # the test episode was recorded
+        assert list(evaluation.run_directory.glob("episode-0.gif"))
+
+    class Built(Exception):
+        pass
+
+    displayed = []
+
+    def build(*args, **kwargs):
+        displayed.append(kwargs["display_env"])
+        raise Built
+
+    monkeypatch.setattr(experiments, "Evaluation", build)
+    for extra in ([], ["--no-display"]):
+        args = experiments.build_parser().parse_args(
+            ["evaluate", "env.json", "agent.json", "--test", "--device", "cpu"] + extra)
+        with pytest.raises(Built):
+            experiments.evaluate({"id": "cartpole"}, {"__class__": "RandomUniformAgent"}, args)
+    assert displayed == [True, False]
 
 
 def test_generate_agent_configs_equals_jaxs(tmp_path):

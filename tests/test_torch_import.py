@@ -48,7 +48,7 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 88
+    assert int(proc.stdout.strip()) >= 99
 
 
 # the modules of the envs and robust-control slice, each held in the checks above
@@ -70,6 +70,54 @@ def test_the_slice_modules_are_checked():
 
 def test_the_slice_10_modules_are_checked():
     assert {f"rl_agents_torch/{m}" for m in SLICE_10_MODULES} <= set(PORT_FILES)
+
+
+# the modules of the graphics slice, and the study scripts
+SLICE_11_MODULES = ("graphics/__init__.py", "graphics/render.py", "graphics/pygame_viewer.py",
+                    "graphics/agent_graphics.py", "graphics/robust_graphics.py",
+                    "graphics/tree_plot.py", "trainer/graphics.py", "scripts/__init__.py",
+                    "scripts/planners_evaluation.py", "scripts/planners_robust_evaluation.py",
+                    "scripts/planners_visualization.py")
+
+
+def test_the_slice_11_modules_are_checked():
+    assert {f"rl_agents_torch/{m}" for m in SLICE_11_MODULES} <= set(PORT_FILES)
+
+
+def test_the_port_has_every_module_of_the_jax_package():
+    """The module lists differ only by design: no ``ops/onehot.py`` (direct
+    indexing), ``ops/pallas_kl.py`` is ``ops/kl_bound.py``, and the port's
+    own additions."""
+    def modules(package):
+        return {p.relative_to(REPO / package).as_posix()
+                for p in (REPO / package).rglob("*.py")}
+
+    jax_modules, port_modules = modules("rl_agents_tpu"), modules("rl_agents_torch")
+    assert jax_modules - port_modules == {"ops/onehot.py", "ops/pallas_kl.py"}
+    assert port_modules - jax_modules == {
+        "convert.py", "experiments.py", "utils/device.py", "utils/noise.py", "ops/kl_bound.py",
+        "scripts/__init__.py", "scripts/planners_evaluation.py",
+        "scripts/planners_robust_evaluation.py", "scripts/planners_visualization.py"}
+
+
+def test_the_port_imports_without_matplotlib_or_pygame():
+    code = (
+        "import sys\n"
+        "for name in ('matplotlib', 'pygame'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil, rl_agents_torch\n"
+        "for m in pkgutil.walk_packages(rl_agents_torch.__path__, 'rl_agents_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from rl_agents_torch.trainer.graphics import RewardViewer\n"
+        "viewer = RewardViewer()\n"
+        "viewer.update(1.0)\n"
+        "print(viewer.rewards)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[1.0]"
 
 
 def test_the_bridge_imports_gymnasium_only_when_a_bridge_is_made():

@@ -326,3 +326,141 @@ def test_agent_defaults_and_closed_loop_message():
                                       "budget": 20}, env_t, device="cpu")
     assert agent.act(None) in (0, 1)
     assert int(agent.last_plan_data.d_count[0, 0]) == agent.config["episodes"]
+
+
+# ---- a stochastic env: the env's own draws replayed from JAX's env keys ----
+
+GRID_STOCH = CONFIGS / "DummyEnv" / "gridenv_stoch.json"
+
+
+def _garnet_stochastic_case(batch=B):
+    """JAX's garnet of branching 2, carried across (the port's own garnet
+    draws another MDP); its step draws ``gumbel(ks, (2,))``."""
+    env_j, params_j = jax_mdp.garnet(jax.random.PRNGKey(0), 16, 4, branching=2)
+    env_t = torch_mdp.FiniteMDPEnv(env_j.num_states, env_j.num_actions, mode=env_j.mode,
+                                   max_episode_steps=env_j.max_episode_steps)
+    params_t = from_numpy(torch_mdp.MDPParams, jax.tree.map(np.asarray, params_j), device="cpu")
+    s = np.random.default_rng(3).integers(0, 16, batch).astype(np.int32)
+    states = jax_mdp.MDPState(s=s, t=np.zeros(batch, np.int32), done=np.zeros(batch, bool))
+    plan = dict(num_actions=4, episodes=12, horizon=4, gamma=0.8, temperature=5.0)
+    draw = lambda k: jax.random.gumbel(k, (2,), jnp.float32)
+    return (env_j, params_j, states), (env_t, params_t,
+                                       from_numpy(torch_mdp.MDPState, states, device="cpu")), \
+        plan, draw
+
+
+def _grid_stochastic_case(batch=B):
+    """``DummyEnv/gridenv_stoch.json``: an action is dropped when
+    ``uniform(ks)`` falls below 0.3. Starts near the reward's centre, so that
+    the returns depend on the drops."""
+    from rl_agents_torch.envs import gridenv as torch_grid
+    from rl_agents_tpu.envs import gridenv as jax_grid
+
+    config = json.loads(GRID_STOCH.read_text())
+    env_j, env_t = jax_grid.make_grid(config), torch_grid.make_grid(config, device="cpu")
+    start = np.random.default_rng(0).integers(7, 13, (batch, 2)).astype(np.float32)
+    states_j = jax_grid.GridState(start, np.zeros(batch, np.int32))
+    states_t = torch_grid.GridState(torch.tensor(start), torch.zeros(batch, dtype=torch.int64))
+    plan = dict(num_actions=4, episodes=12, horizon=4, gamma=0.7, temperature=5.0)
+    draw = lambda k: jax.random.uniform(k)
+    return (env_j.functional, env_j.params, states_j), \
+        (env_t.functional, env_t.params, states_t), plan, draw
+
+
+STOCHASTIC_CASES = {"garnet": _garnet_stochastic_case, "gridenv_stoch": _grid_stochastic_case}
+
+
+def _tree_draws_with_env(key, episodes, horizon, num_actions, draw):
+    """``_tree_draws`` with the env's draw of every step: each descent and
+    rollout step of ``mcts_plan`` splits its chain into ``(chain, ka, ks)``
+    and steps the env with ``ks`` (rl_agents_tpu/.../mcts.py:99-101,129-131).
+    ``(descend, rollout, env_descend, env_rollout)``, each
+    ``[episodes, horizon, ...]``."""
+    out = ([], [], [], [])
+    for _ in range(episodes):
+        key, kdesc, kroll, _ = jax.random.split(key, 4)
+        for chain, g_out, env_out in ((kdesc, out[0], out[2]), (kroll, out[1], out[3])):
+            g_row, env_row = [], []
+            for _ in range(horizon):
+                chain, ka, ks = jax.random.split(chain, 3)
+                g_row.append(jax.random.gumbel(ka, (num_actions,), jnp.float32))
+                env_row.append(draw(ks))
+            g_out.append(jnp.stack(g_row))
+            env_out.append(jnp.stack(env_row))
+    return tuple(jnp.stack(x) for x in out)
+
+
+def _tree_first(x):
+    """``[B, episodes, H, ...]`` -> ``[episodes, H, B, ...]``."""
+    return np.moveaxis(np.asarray(x), 0, 2)
+
+
+@pytest.mark.parametrize("name", sorted(STOCHASTIC_CASES))
+def test_mcts_plan_on_a_stochastic_env_matches_with_jax_env_keys(name):
+    """``mcts_plan`` given the tie-breaking, rollout and env draws of
+    ``jax.vmap(mcts_plan)``'s keys builds JAX's trees; other env draws build
+    other trees, so the env's draws are the injected ones."""
+    (env_j, params_j, states_j), (env_t, params_t, states_t), plan, draw = \
+        STOCHASTIC_CASES[name]()
+    keys = jax.random.split(jax.random.PRNGKey(5), B)
+    probs_j, probs_t = _uniform(plan["num_actions"])
+    actions_j, lengths_j, tree_j = jax.vmap(lambda s, k: jm.mcts_plan(
+        env_j, params_j, s, k, probs_j, probs_j, **plan))(jax.tree.map(jnp.asarray, states_j),
+                                                           keys)
+    fn = jax.jit(jax.vmap(lambda k: _tree_draws_with_env(
+        k, plan["episodes"], plan["horizon"], plan["num_actions"], draw)))
+    descend, rollout, env_descend, env_rollout = (_tree_first(x) for x in fn(keys))
+    for planner in (tm.mcts_plan, tm.mcts_plan_batch_vmap):
+        actions_t, lengths_t, tree_t = planner(
+            env_t, params_t, states_t, None, probs_t, probs_t, noise=(descend, rollout),
+            env_noise=(env_descend, env_rollout), device="cpu", **plan)
+        np.testing.assert_array_equal(actions_t.numpy(), np.asarray(actions_j))
+        np.testing.assert_array_equal(lengths_t.numpy(), np.asarray(lengths_j))
+        _assert_trees_match(tree_t, tree_j)
+    other = tm.mcts_plan(env_t, params_t, states_t, None, probs_t, probs_t,
+                         noise=(descend, rollout), device="cpu", **plan,
+                         env_noise=(env_descend[::-1].copy(), env_rollout[::-1].copy()))
+    assert not np.array_equal(other[2].value.numpy(), tree_t.value.numpy())
+
+
+def _fused_draws_with_env(keys, episodes, horizon, num_actions, batch, draw):
+    """The fused planner's draws (rl_agents_tpu/.../mcts_fused.py:75,88,93,
+    118-120): ``ka = fold_in(fold_in(keys[0], episode), h)`` gives the
+    ``[2, A, B]`` Gumbel draws, and ``split(fold_in(ka, 1), B)`` one env key a
+    tree. ``([episodes, H, 2, A, B], [episodes, H, B, ...])``."""
+    def step(episode, h):
+        ka = jax.random.fold_in(jax.random.fold_in(keys[0], episode), h)
+        env_keys = jax.random.split(jax.random.fold_in(ka, 1), batch)
+        return (jax.random.gumbel(ka, (2, num_actions, batch), jnp.float32),
+                jax.vmap(draw)(env_keys))
+
+    grid = jax.vmap(lambda e: jax.vmap(lambda h: step(e, h))(jnp.arange(horizon)))
+    return tuple(np.asarray(x) for x in jax.jit(grid)(jnp.arange(episodes)))
+
+
+@pytest.mark.parametrize("name", sorted(STOCHASTIC_CASES))
+def test_fused_plan_on_a_stochastic_env_matches_with_jax_env_keys(name):
+    """``mcts_plan_batch_fused`` (and ``mcts_plan_batch``, which routes to
+    it) given the draws of JAX's fused planner, env keys included, builds
+    its tree view."""
+    from rl_agents_torch.agents.tree_search.mcts_fused import mcts_plan_batch_fused
+    from rl_agents_tpu.agents.tree_search.mcts_fused import (
+        mcts_plan_batch_fused as jax_fused,
+    )
+
+    batch = 16
+    (env_j, params_j, states_j), (env_t, params_t, states_t), plan, draw = \
+        STOCHASTIC_CASES[name](batch)
+    keys = jax.random.split(jax.random.PRNGKey(9), batch)
+    probs_j, probs_t = _uniform(plan["num_actions"])
+    actions_j, lengths_j, tree_j = jax_fused(env_j, params_j, jax.tree.map(jnp.asarray, states_j),
+                                             keys, probs_j, probs_j, **plan)
+    noise, env_noise = _fused_draws_with_env(keys, plan["episodes"], plan["horizon"],
+                                             plan["num_actions"], batch, draw)
+    for planner in (mcts_plan_batch_fused, tm.mcts_plan_batch):
+        actions_t, lengths_t, tree_t = planner(env_t, params_t, states_t, None, probs_t, probs_t,
+                                               noise=noise, env_noise=env_noise, device="cpu",
+                                               **plan)
+        np.testing.assert_array_equal(actions_t.numpy(), np.asarray(actions_j))
+        np.testing.assert_array_equal(lengths_t.numpy(), np.asarray(lengths_j))
+        _assert_trees_match(tree_t, tree_j)

@@ -293,3 +293,116 @@ def test_baseline_config_plans_with_a_saved_dqn_prior(tmp_path, monkeypatch):
     root_probs = torch.softmax(torch.tensor(q) * 2.0, dim=-1).numpy()[0]
     np.testing.assert_allclose(tree.prior[0, 1:6], root_probs, atol=1e-6)
     assert agent.save(tmp_path / "again.tar")
+
+
+# ---- the root vector of a prior agent without a Q table, and env draws ----
+
+SIX_STATES = {"mode": "deterministic",
+              "transition": [[1, 2, 3], [2, 3, 4], [3, 4, 5], [4, 5, 0], [5, 0, 1], [0, 1, 2]],
+              "reward": [[0.1, 0.5, 0.2], [0.3, 0.0, 0.8], [0.6, 0.4, 0.1], [0.2, 0.9, 0.3],
+                         [0.7, 0.1, 0.5], [0.0, 0.3, 0.6]],
+              "terminal": [0, 0, 0, 0, 0, 0], "max_episode_steps": 50}
+
+
+def _env_draw_chain(key, episodes, horizon, num_actions, draw):
+    """``_tree_draws`` with the env's draw ``draw(ks)`` of every descent and
+    rollout step (rl_agents_tpu/.../mcts_with_prior.py:58-60,86-88):
+    ``(descend, rollout, env_descend, env_rollout)``."""
+    out = ([], [], [], [])
+    for _ in range(episodes):
+        key, kdesc, kroll = jax.random.split(key, 3)
+        for chain, g_out, env_out in ((kdesc, out[0], out[2]), (kroll, out[1], out[3])):
+            g_row, env_row = [], []
+            for _ in range(horizon):
+                chain, ka, ks = jax.random.split(chain, 3)
+                g_row.append(jax.random.gumbel(ka, (num_actions,), jnp.float32))
+                env_row.append(draw(ks))
+            g_out.append(jnp.stack(g_row))
+            env_out.append(jnp.stack(env_row))
+    return tuple(jnp.stack(x) for x in out)
+
+
+def _draws_with_env(keys, plan, draw):
+    """``(noise, env_noise)`` as the port takes them, each a pair of
+    ``[episodes, H, B, ...]``."""
+    fn = jax.jit(jax.vmap(lambda k: _env_draw_chain(k, plan["episodes"], plan["horizon"],
+                                                     plan["num_actions"], draw)))
+    d, r, ed, er = (np.moveaxis(np.asarray(x), 0, 2) for x in fn(keys))
+    return (d, r), (ed, er)
+
+
+def test_root_vector_prior_of_an_agent_plans_as_jax():
+    """A ``RandomUniformAgent`` prior has no Q table, so the agent's root
+    prior is a vector ``[A]``: 0.9 on the prior's action. JAX's ``prior_fn``
+    gives the whole vector at a state index below A and zeros at A or above
+    (a latent defect of the JAX package that the port keeps); trees at
+    states 1, 2, 4 and 5 plan as ``jax.vmap(mcts_prior_plan)``'s under its
+    draws."""
+    agent_config = {"__class__": "MCTSWithPriorPolicyAgent", "budget": 20,
+                    "prior_agent": {"__class__": "RandomUniformAgent"}}
+    handle_j = jax_mdp.make(dict(SIX_STATES))
+    handle_t = torch_mdp.make(dict(SIX_STATES), device="cpu")
+    agent_j = jax_load_agent(json.loads(json.dumps(agent_config)), handle_j)
+    agent_t = torch_load_agent(json.loads(json.dumps(agent_config)), handle_t, device="cpu")
+    assert agent_t._tabular_prior and agent_t._index_obs
+    for agent in (agent_j, agent_t):
+        agent.num_actions = 3
+        agent.seed(4)
+        agent._refresh_root_prior(1)
+    root = agent_t._root_prior.numpy()
+    np.testing.assert_array_equal(root, np.asarray(agent_j._root_prior))
+    assert root.shape == (3,) and sorted(root.tolist()) == pytest.approx([0.05, 0.05, 0.9])
+
+    s = np.array([1, 2, 4, 5], np.int32)
+    obs = torch.tensor(s)
+    want_rows = np.asarray(jax.vmap(lambda o: agent_j._prior_fn(agent_j._root_prior, o))(s))
+    np.testing.assert_array_equal(agent_t._prior_fn(agent_t._root_prior, obs).numpy(), want_rows)
+    np.testing.assert_array_equal(want_rows, [root, root, [0, 0, 0], [0, 0, 0]])
+
+    env_j, params_j = handle_j.functional, handle_j.params
+    states_j = jax_mdp.MDPState(s=jnp.asarray(s), t=jnp.zeros(B, jnp.int32),
+                                done=jnp.zeros(B, bool))
+    plan = dict(num_actions=3, episodes=10, horizon=4, gamma=0.9, temperature=5.0)
+    keys = jax.random.split(jax.random.PRNGKey(3), B)
+    want = _jax_plan(env_j, params_j, states_j, jnp.asarray(s), keys, agent_j._root_prior,
+                     agent_j._prior_fn, plan)
+    got = tp.mcts_prior_plan(handle_t.functional, handle_t.params,
+                             from_numpy(torch_mdp.MDPState, states_j, "cpu"), obs, None,
+                             agent_t._root_prior, agent_t._prior_fn, noise=_draws(keys, plan),
+                             device="cpu", **plan)
+    _assert_plans_equal(got, want)
+    tree = tree_to_numpy(got[2])
+    np.testing.assert_array_equal(tree.prior[:, 1:4], want_rows)  # the root expansions
+
+
+@pytest.mark.parametrize("table", ["rows", "root_vector"])
+def test_prior_plan_on_a_stochastic_garnet_matches_with_jax_env_keys(table):
+    """JAX's garnet of branching 2, carried across, under a per-state table
+    ``[S, A]`` and under a root vector ``[A]``: with the tie-breaking,
+    rollout and next-state draws of each tree's key injected, the plans are
+    JAX's."""
+    env_j, params_j = jax_mdp.garnet(jax.random.PRNGKey(0), 16, 4, branching=2)
+    env_t = torch_mdp.FiniteMDPEnv(16, 4, mode=env_j.mode,
+                                   max_episode_steps=env_j.max_episode_steps)
+    params_t = from_numpy(torch_mdp.MDPParams, jax.tree.map(np.asarray, params_j), device="cpu")
+    rng = np.random.default_rng(11)
+    s = np.array([0, 3, 7, 12], np.int32)
+    states_j = jax_mdp.MDPState(s=jnp.asarray(s), t=jnp.zeros(B, jnp.int32),
+                                done=jnp.zeros(B, bool))
+    rows = jp.MCTSWithPriorPolicyAgent._boltzmann_rows(rng.normal(size=(16, 4)), 0.5)
+    prior = rows if table == "rows" else rows[5]
+
+    def prior_fn_j(tab, obs):  # rl_agents_tpu/.../mcts_with_prior.py:176-179
+        oh = jnp.arange(tab.shape[0]) == jnp.asarray(obs, jnp.int32)
+        return jnp.sum(jnp.where(oh[:, None], tab, 0.0), axis=0)
+
+    plan = dict(num_actions=4, episodes=10, horizon=4, gamma=0.8, temperature=5.0)
+    keys = jax.random.split(jax.random.PRNGKey(12), B)
+    want = _jax_plan(env_j, params_j, states_j, jnp.asarray(s), keys, jnp.asarray(prior),
+                     prior_fn_j, plan)
+    noise, env_noise = _draws_with_env(keys, plan,
+                                       lambda k: jax.random.gumbel(k, (2,), jnp.float32))
+    got = tp.mcts_prior_plan(env_t, params_t, from_numpy(torch_mdp.MDPState, states_j, "cpu"),
+                             torch.tensor(s), None, torch.tensor(prior), tp.tabular_prior,
+                             noise=noise, env_noise=env_noise, device="cpu", **plan)
+    _assert_plans_equal(got, want)
