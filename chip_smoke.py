@@ -10,14 +10,17 @@ non-zero without its final line:
    no CUDA device is an error;
 2. build the hand-written kernels from the repository's sources;
 3. hold each kernel against its plain PyTorch version on the card, and time
-   both: the KL bound's dense form ``kl_bound`` at n = 4096 and n = 2^24 on
-   OLOP-like statistics and on the inputs that MDP-GapE plans passed to it
-   (recorded from the last episode of a 4096-tree plan and of a 1-tree plan
-   at the confidence 1.0 of ``mdp-gape.json``, and of a 4096-tree plan at the
-   agent's default confidence 0.9) and that stochastic GBOP plans on Sailing
-   (its reward sums are negative) and on highway passed to it, and its indexed form
-   ``kl_bound_indexed_`` on a ``[4096, 369]`` arena at the planner's path of
-   8 x 4096 nodes;
+   both: the KL bound's paired form ``kl_bounds_pair_`` on the arenas that
+   MDP-GapE plans passed to it (recorded from the last episode of a
+   4096-tree plan and of a 1-tree plan at the confidence 1.0 of
+   ``mdp-gape.json``, and of a 4096-tree plan at the agent's default
+   confidence 0.9) and that stochastic GBOP plans on Sailing (its reward sums
+   are negative) and on highway passed to it, every entry off the path or
+   the mask unchanged, timed beside the dense launches it replaces on the
+   same inputs; the dense form ``kl_bound`` on those inputs, at n = 4096,
+   1,000,003 and 2^24 on OLOP-like statistics and on edge cases; and the
+   indexed form ``kl_bound_indexed_`` on a ``[4096, 369]`` arena at the
+   planner's path of 8 x 4096 nodes;
 4. the OLOP batch path at full width: ``olop_plan_batch`` on CartPole, 4096
    trees, 23 episodes x horizon 8, gamma 0.95, one ``kl_bound_indexed_``
    launch per episode, checked against the same first 64 trees planned on the
@@ -33,8 +36,9 @@ non-zero without its final line:
 8. the MDP-GapE batch path: ``mdp_gape_plan_batch``, 4096 trees on the garnet
    MDP of ``FiniteMDPEnv/env_garnet.json`` at the sizes of
    ``FiniteMDPEnv/agents/mdp-gape.json`` (confidence 1.0) and again at the
-   agent's default confidence 0.9, two dense ``kl_bound`` launches per
-   (episode, depth) step, the Newton trips of its chance backups counted,
+   agent's default confidence 0.9, one ``kl_bounds_pair_`` launch per
+   episode (21 a plan; the dense form 0), the Newton trips of its chance
+   backups counted,
    and the first 64 trees of a plan on a deterministic garnet checked against
    the CPU plan under the same noise (one timed plan, one with a read-back
    every Newton trip and one profiled at confidence 1.0; one timed plan, not
@@ -44,8 +48,8 @@ non-zero without its final line:
 10. the stochastic GBOP batch path: ``gbop_stochastic_plan_batch`` on the
     Sailing domain (``SailingEnv/env.json``, size 8), 4096 trees from random
     starts at the sizes of ``SailingEnv/agents/gbop.json`` (3 episodes x
-    horizon 55, one next-state slot; one timed plan), two dense ``kl_bound``
-    launches per (episode, depth) step, 330 a plan, its value-iteration sweeps
+    horizon 55, one next-state slot; one timed plan), one ``kl_bounds_pair_``
+    launch per (episode, depth) step, 165 a plan, its value-iteration sweeps
     counted and
     its first 64 trees checked against the CPU plan under the same noise; then
     the same planner with three next-state slots on 512 trees, one plan, the Newton
@@ -60,8 +64,8 @@ non-zero without its final line:
 14. the highway batch paths at the full width of ``HighwayEnv/env.json`` (15
     vehicles on 4 lanes), at the JAX bench's sizes (``bench.py:242-367``):
     MCTS (4096 trees, 23 x 8), OPD (4096 trees, 46 expansions), GBOP-D (4096
-    trees, 12 expansions), stochastic GBOP (512 trees, 8 x 4, 64 dense
-    ``kl_bound`` launches a plan); KL-OLOP at ``kl-olop.json``'s budget (4096
+    trees, 12 expansions), stochastic GBOP (512 trees, 8 x 4, 32
+    ``kl_bounds_pair_`` launches a plan); KL-OLOP at ``kl-olop.json``'s budget (4096
     trees, 72 x 6, one ``kl_bound_indexed_`` launch per episode) and DROP on
     ``merge-v0`` (4096 trees x 2 models, 40 expansions); each timed, profiled
     (MCTS over 3 episodes of its 23) and its first 64 trees held against the
@@ -161,7 +165,7 @@ non-zero without its final line:
     episodes' inputs of this plan); ``kl-olop.json`` on ``empty.json`` and
     ``uct.json`` on ``collect_stochastic.json``, 3 steps each;
 33. MDP-GapE on ``DummyEnv/gridenv_stoch.json`` at ``DummyEnv/agents/
-    mdp-gape.json``'s 35 (+1) x 5, 4096 trees, 360 dense ``kl_bound``
+    mdp-gape.json``'s 35 (+1) x 5, 4096 trees, 36 ``kl_bounds_pair_``
     launches a plan, the first 64 trees against the CPU plan under the same
     draws (the grid's drops injected); ``mdp-gape.json`` on the grid and
     ``DummyEnv/agents/{kl-olop,brue}.json`` on ``dynamics.json``, 3 steps
@@ -212,8 +216,10 @@ non-zero without its final line:
     card's cloud against the CPU's frontier of the same cloud. This host has
     neither matplotlib nor pygame, so the drawing itself is tested on the
     CPU;
-43. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` as the
-    last line. The DQN paths, the paths of phases 19-31, the robust control
+43. a ``kernels`` JSON line (the three KL forms; the dense form is on no
+    main path since the paired form took its two callers, and its
+    launches there are asserted 0), then ``{"ok": true, "device": {...}}``
+    as the last line. The DQN paths, the paths of phases 19-31, the robust control
     of phase 35, the learner, serving and checkpoints of phases 36-39 and
     phases 40 and 41 launch no hand kernel: their products, softmax, hull,
     interval predictor, LMI descent, collectives and env steps are tensor
@@ -278,9 +284,9 @@ GAPE_DEFAULT = dict(GAPE, confidence=0.9)
 GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE, GAPE_PLANS, True, True),
               ("agent default, confidence 0.9", GAPE_DEFAULT, 1, False, False))
 GAPE_STATES = 16
-# the planner runs while ``episode <= episodes``: episodes + 1 episodes of
-# horizon steps, an upper and a lower bound each
-GAPE_KL_LAUNCHES = 2 * (GAPE["episodes"] + 1) * GAPE["horizon"]
+# the planner runs while ``episode <= episodes``: episodes + 1 episodes, one
+# paired launch each over the episode's path (both bounds of H x B nodes)
+GAPE_KL_LAUNCHES = GAPE["episodes"] + 1
 # The Sailing planner study (SailingEnv/env.json with agents/gbop.json,
 # gbop-d.json, opd.json): budget 200 at gamma 0.99. Stochastic GBOP splits it
 # into 3 episodes x horizon 55 with one next-state slot and the thresholds
@@ -291,7 +297,7 @@ GBOP = dict(num_actions=SAILING_ACTIONS, episodes=3, horizon=55, gamma=SAILING_G
 # three next-state slots, the wind's three outcomes: no corpus config sets it
 GBOP_WIDE = dict(GBOP, width=3)
 GBOP_WIDE_TREES = 512
-GBOP_KL_LAUNCHES = 2 * GBOP["episodes"] * GBOP["horizon"]
+GBOP_KL_LAUNCHES = GBOP["episodes"] * GBOP["horizon"]  # one paired launch a step
 GBOP_D = dict(num_actions=SAILING_ACTIONS, expansions=SAILING_BUDGET // SAILING_ACTIONS,
               gamma=SAILING_GAMMA, accuracy=1e-2)
 # OPD on CartPole at the JAX bench's budget: 230 / 2 actions = 115 expansions
@@ -302,7 +308,7 @@ SAILING_AGENT_STEPS = 3
 # (bench.py:242-367): MCTS at the headline's 23 x 8, OPD with 46 expansions
 # and a plan of 8, GBOP-D with 12 expansions, stochastic GBOP on 512 trees at
 # 8 episodes x horizon 4 with both threshold coefficients 2 (one next-state
-# slot: 64 dense kl_bound launches a plan); KL-OLOP at kl-olop.json's budget
+# slot: 32 kl_bounds_pair_ launches a plan); KL-OLOP at kl-olop.json's budget
 # 500 and gamma 0.7 (72 episodes x horizon 6, threshold 2 log(time), uniform
 # continuation: one kl_bound_indexed_ launch per episode); DROP on merge-v0
 # with the two models of MergeEnv/agents/DiscreteRobustPlannerAgent.json at its
@@ -315,7 +321,7 @@ HW_GBOP_D = dict(num_actions=HW_ACTIONS, expansions=12, gamma=GAMMA, accuracy=1e
 HW_GBOP = dict(num_actions=HW_ACTIONS, episodes=8, horizon=4, gamma=GAMMA, accuracy=1e-2,
                reward_threshold_coeff=2.0, transition_threshold_coeff=2.0)
 HW_GBOP_TREES = 512
-HW_GBOP_KL_LAUNCHES = 2 * HW_GBOP["episodes"] * HW_GBOP["horizon"]
+HW_GBOP_KL_LAUNCHES = HW_GBOP["episodes"] * HW_GBOP["horizon"]
 HW_OLOP_BUDGET, HW_OLOP_GAMMA = 500, 0.7
 HW_OLOP = dict(num_actions=HW_ACTIONS, episodes=72, horizon=6, gamma=HW_OLOP_GAMMA,
                threshold_coeff=2.0, continuation_uniform=True)
@@ -399,19 +405,25 @@ def card_line() -> str:
 
 
 def reset_launches():
-    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_indexed_
+    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_indexed_, kl_bounds_pair_
 
-    kl_bound.launches = kl_bound_indexed_.launches = 0
+    kl_bound.launches = kl_bound_indexed_.launches = kl_bounds_pair_.launches = 0
 
 
 def read_launches() -> dict:
-    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_indexed_
+    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_indexed_, kl_bounds_pair_
 
-    return {"kl_bound": kl_bound.launches, "kl_bound_indexed_": kl_bound_indexed_.launches}
+    return {"kl_bound": kl_bound.launches, "kl_bound_indexed_": kl_bound_indexed_.launches,
+            "kl_bounds_pair_": kl_bounds_pair_.launches}
 
 
-def expect_launches(path: str, got: dict, kl_bound: int, kl_bound_indexed_: int):
-    want = {"kl_bound": kl_bound, "kl_bound_indexed_": kl_bound_indexed_}
+NO_LAUNCHES = {"kl_bound": 0, "kl_bound_indexed_": 0, "kl_bounds_pair_": 0}
+
+
+def expect_launches(path: str, got: dict, kl_bound: int, kl_bound_indexed_: int,
+                    kl_bounds_pair_: int = 0):
+    want = {"kl_bound": kl_bound, "kl_bound_indexed_": kl_bound_indexed_,
+            "kl_bounds_pair_": kl_bounds_pair_}
     if got != want:
         raise AssertionError(f"{path}: launches {got}, expected {want}")
 
@@ -504,32 +516,41 @@ def garnet_case(dev, branching: int):
     return env, params_to(params, dev), states
 
 
-def gape_kl_calls(dev, kw: dict, trees: int) -> list:
-    """``[((sum, count, threshold), lower), ...]``: the inputs of the dense
-    launches of the last episode of one MDP-GapE plan of ``trees`` trees, as
-    the planner passed them (its highest counts), upper and lower in turn for
-    each depth."""
+def pair_calls(module, run, keep: int) -> tuple:
+    """Run ``run()`` with ``module.kl_bounds_pair_`` recording each call's
+    inputs as the planner passed them, ``(sum, count, at, threshold, mask)``
+    (the arenas cloned: the planner goes on writing them). Returns the last
+    ``keep`` calls and the number of calls."""
+    calls, seen, inner = [], [0], module.kl_bounds_pair_
+
+    def recording(ucb, lcb, _sum, count, at, threshold, mask=None, **rest):
+        seen[0] += 1
+        calls.append(tuple(None if v is None else v.clone()
+                           for v in (_sum, count, at, threshold, mask)))
+        del calls[:-keep]
+        return inner(ucb, lcb, _sum, count, at, threshold, mask, **rest)
+
+    module.kl_bounds_pair_ = recording
+    try:
+        run()
+    finally:
+        module.kl_bounds_pair_ = inner
+    return calls, seen[0]
+
+
+def gape_pair_calls(dev, kw: dict, trees: int) -> list:
+    """The paired launch of the last episode of one MDP-GapE plan of
+    ``trees`` trees (its highest counts), as the planner passed it."""
     from rl_agents_torch.agents.tree_search import mdp_gape
 
     env, params, states = garnet_case(dev, branching=2)
-    calls = []
-    inner = mdp_gape.kl_upper_bound
-
-    def recording(_sum, count, threshold, lower=False, **rest):
-        inputs = tuple(v.clone() for v in torch.broadcast_tensors(_sum, count, threshold))
-        calls.append((inputs, lower))
-        return inner(_sum, count, threshold, lower=lower, **rest)
-
-    mdp_gape.kl_upper_bound = recording
-    try:
-        mdp_gape.mdp_gape_plan(env, params, states(dev, trees),
-                               torch.Generator(device=dev).manual_seed(11), device=dev, **kw)
-    finally:
-        mdp_gape.kl_upper_bound = inner
-    if len(calls) != GAPE_KL_LAUNCHES:
-        raise AssertionError(f"an MDP-GapE plan made {len(calls)} KL calls, "
-                             f"expected {GAPE_KL_LAUNCHES}")
-    return calls[-2 * kw["horizon"]:]
+    calls, seen = pair_calls(mdp_gape, lambda: mdp_gape.mdp_gape_plan(
+        env, params, states(dev, trees), torch.Generator(device=dev).manual_seed(11),
+        device=dev, **kw), keep=1)
+    if seen != kw["episodes"] + 1:
+        raise AssertionError(f"an MDP-GapE plan made {seen} paired KL calls, "
+                             f"expected {kw['episodes'] + 1}")
+    return calls
 
 
 def sailing_case(dev):
@@ -552,58 +573,57 @@ def sailing_case(dev):
     return env, env.default_params(dev), states
 
 
-def gbop_kl_calls(dev, env, params, states0, kw: dict, launches: int) -> list:
-    """``[((sum, count, threshold), lower), ...]``: the inputs of the dense
-    launches of the last episode of one stochastic GBOP plan from
-    ``states0``, as the planner passed them, upper and lower in turn for each
-    depth. The plan must make ``launches`` calls."""
+def gbop_pair_calls(dev, env, params, states0, kw: dict, launches: int) -> list:
+    """The paired launches of the last episode of one stochastic GBOP plan
+    from ``states0``, one a depth, as the planner passed them. The plan must
+    make ``launches`` calls."""
     from rl_agents_torch.agents.tree_search import graph_based_stochastic as gbop
 
-    calls = []
-    inner = gbop.kl_upper_bound
-
-    def recording(_sum, count, threshold, lower=False, **rest):
-        inputs = tuple(v.clone() for v in torch.broadcast_tensors(_sum, count, threshold))
-        calls.append((inputs, lower))
-        return inner(_sum, count, threshold, lower=lower, **rest)
-
-    gbop.kl_upper_bound = recording
-    try:
-        gbop.gbop_stochastic_plan(env, params, states0, env.observe(params, states0),
-                                  torch.Generator(device=dev).manual_seed(12), device=dev, **kw)
-    finally:
-        gbop.kl_upper_bound = inner
-    if len(calls) != launches:
-        raise AssertionError(f"a stochastic GBOP plan made {len(calls)} KL calls, "
+    calls, seen = pair_calls(gbop, lambda: gbop.gbop_stochastic_plan(
+        env, params, states0, env.observe(params, states0),
+        torch.Generator(device=dev).manual_seed(12), device=dev, **kw), keep=kw["horizon"])
+    if seen != launches:
+        raise AssertionError(f"a stochastic GBOP plan made {seen} paired KL calls, "
                              f"expected {launches}")
-    return calls[-2 * kw["horizon"]:]
-
-
-def sailing_gbop_kl_calls(dev) -> list:
-    """The dense launches of the last episode of a ``TREES``-tree stochastic
-    GBOP plan on Sailing, which pays -cost / worst in [-1, 0): the sums are
-    negative."""
-    env, params, states = sailing_case(dev)
-    calls = gbop_kl_calls(dev, env, params, states(dev, TREES), GBOP, GBOP_KL_LAUNCHES)
-    negative = sum(int((inputs[0] < 0).sum()) for inputs, _ in calls)
-    total = sum(inputs[0].numel() for inputs, _ in calls)
-    print(f"stochastic GBOP on Sailing, last episode: {negative} of {total} reward sums passed "
-          f"to kl_bound are negative")
-    if negative == 0:
-        raise AssertionError("no negative reward sum reached kl_bound on Sailing")
     return calls
 
 
-def highway_gbop_kl_calls(dev) -> list:
-    """The dense launches of the last episode of a stochastic GBOP plan on
+def gathered(_sum, count, at, threshold, mask):
+    """What a paired call solves, in ``at``'s shape (element i of tree
+    i % B): the sums, the counts as f32, the threshold of each, and whether
+    its tree is kept by the mask."""
+    trees = _sum.shape[0]
+    per_tree = at.reshape(-1, trees).t()
+    s = _sum.reshape(trees, -1).gather(1, per_tree).t().reshape(at.shape)
+    n = count.reshape(trees, -1).gather(1, per_tree).t().reshape(at.shape)
+    t = threshold[n] if threshold.dim() == 1 else threshold.expand(at.shape)
+    keep = (torch.ones_like(at, dtype=torch.bool) if mask is None else mask.expand(at.shape))
+    return s, n.to(torch.float32), t.contiguous(), keep
+
+
+def sailing_gbop_pair_calls(dev) -> list:
+    """The paired launches of the last episode of a ``TREES``-tree stochastic
+    GBOP plan on Sailing, which pays -cost / worst in [-1, 0): the sums are
+    negative."""
+    env, params, states = sailing_case(dev)
+    calls = gbop_pair_calls(dev, env, params, states(dev, TREES), GBOP, GBOP_KL_LAUNCHES)
+    sums = torch.stack([gathered(*call)[0] for call in calls])
+    print(f"stochastic GBOP on Sailing, last episode: {int((sums < 0).sum())} of {sums.numel()} "
+          f"reward sums passed to kl_bounds_pair_ are negative")
+    if not (sums < 0).any():
+        raise AssertionError("no negative reward sum reached kl_bounds_pair_ on Sailing")
+    return calls
+
+
+def highway_gbop_pair_calls(dev) -> list:
+    """The paired launches of the last episode of a stochastic GBOP plan on
     highway at the JAX bench's sizes (512 trees, 8 x 4)."""
     env, params, states = highway_case(dev)
-    calls = gbop_kl_calls(dev, env, params(dev), states(dev, HW_GBOP_TREES), HW_GBOP,
-                          HW_GBOP_KL_LAUNCHES)
-    counts = torch.cat([inputs[1] for inputs, _ in calls])
+    calls = gbop_pair_calls(dev, env, params(dev), states(dev, HW_GBOP_TREES), HW_GBOP,
+                            HW_GBOP_KL_LAUNCHES)
+    counts = torch.stack([gathered(*call)[1] for call in calls])
     print(f"stochastic GBOP on highway, last episode: {len(calls)} launches of "
-          f"{calls[0][0][0].numel()} elements, counts up to {float(counts.max())!r}, "
-          f"{int((counts == 0).sum())} of {counts.numel()} never visited")
+          f"{calls[0][2].numel()} elements, counts up to {float(counts.max())!r}")
     return calls
 
 
@@ -625,35 +645,21 @@ def time_dense(label: str, inputs, n: int, lower: bool, reps, dev) -> dict:
 
 
 def check_kl_bound(dev) -> dict:
-    """The dense form against its plain version on the inputs that MDP-GapE
-    plans passed to it (every launch of a plan's last episode: 4096 trees and
-    1 tree at the config's confidence 1.0, 4096 trees at the agent's default
-    0.9) and that stochastic GBOP plans passed to it (every launch of the last
-    episode: on Sailing, negative sums; on highway at the JAX bench's 512
-    trees), at OLOP's former per-depth shape, a large odd size, 2^24 and the
-    edge cases; timed on the first-depth launches of those plans (and the
-    last depth of the GBOP plans), at n = 4096 on OLOP-like statistics and at
-    n = 2^24 (bytes-bound)."""
+    """The dense form against its plain version on OLOP-like statistics at
+    OLOP's former per-depth shape, a large odd size and 2^24, and on the edge
+    cases; timed at n = 4096 and n = 2^24 (bytes-bound). Phase 3 also holds
+    it on the planners' recorded inputs (``check_kl_bounds_pair``). Since
+    MDP-GapE and stochastic GBOP call the paired form, no main path launches
+    it."""
     from rl_agents_torch.ops.kl_bound import kl_bound, kl_bound_torch
     from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS
 
     rng = np.random.default_rng(0)
     worst = 0.0
-    gape = {"config": gape_kl_calls(dev, GAPE, TREES), "config_n1": gape_kl_calls(dev, GAPE, 1),
-            "default": gape_kl_calls(dev, GAPE_DEFAULT, TREES)}
-    gbop = sailing_gbop_kl_calls(dev)
-    highway = highway_gbop_kl_calls(dev)
-    cases = [(f"{n} OLOP-like", kl_inputs(n, rng, dev), (False, True))
-             for n in (TREES, 1_000_003, DENSE_LARGE)]
-    cases.append(("8 edge cases", kl_edge_inputs(dev), (False, True)))
-    cases += [(f"{inputs[0].numel()} MDP-GapE {tag} launch {i}", inputs, (lower,))
-              for tag, calls in gape.items() for i, (inputs, lower) in enumerate(calls)]
-    cases += [(f"{inputs[0].numel()} stochastic GBOP on Sailing launch {i}", inputs, (lower,))
-              for i, (inputs, lower) in enumerate(gbop)]
-    cases += [(f"{inputs[0].numel()} stochastic GBOP on highway launch {i}", inputs, (lower,))
-              for i, (inputs, lower) in enumerate(highway)]
-    for label, inputs, sides in cases:
-        for lower in sides:
+    cases = [(f"{n} OLOP-like", kl_inputs(n, rng, dev)) for n in (TREES, 1_000_003, DENSE_LARGE)]
+    cases.append(("8 edge cases", kl_edge_inputs(dev)))
+    for label, inputs in cases:
+        for lower in (False, True):
             for iters in (24, NEWTON_MAX_ITERATIONS):
                 got = kl_bound(*inputs, lower=lower, iters=iters, device=dev)
                 want = kl_bound_torch(*inputs, lower=lower, iters=iters)
@@ -666,27 +672,159 @@ def check_kl_bound(dev) -> dict:
                 worst = max(worst, err)
     del cases
 
-    # the first-depth launches of the recorded episode: upper, then lower
-    reps = (100, 20, 500, 20)
-    timed = {}
-    for tag, label in (("config", "MDP-GapE confidence 1.0"), ("config_n1", "MDP-GapE confidence 1.0"),
-                       ("default", "MDP-GapE confidence 0.9")):
-        for inputs, lower in gape[tag][:2]:
-            timed[f"gape_{tag}_{'lower' if lower else 'upper'}"] = time_dense(
-                label, inputs, inputs[0].numel(), lower, reps, dev)
-    # stochastic GBOP: the first and the last depth of the recorded episodes
-    for domain, calls in (("gbop", gbop), ("highway_gbop", highway)):
-        for tag, pair in (("first", calls[:2]), ("last", calls[-2:])):
-            for inputs, lower in pair:
-                timed[f"{domain}_{tag}_{'lower' if lower else 'upper'}"] = time_dense(
-                    f"stochastic GBOP on {'highway' if 'highway' in domain else 'Sailing'}, "
-                    f"{tag} depth", inputs, inputs[0].numel(), lower, reps, dev)
-    main = timed.pop("gape_config_upper")
-    timed["olop_like"] = time_dense("OLOP-like", kl_inputs(TREES, rng, dev), TREES, False, reps, dev)
-    timed[f"n{DENSE_LARGE}"] = time_dense("OLOP-like", kl_inputs(DENSE_LARGE, rng, dev),
-                                          DENSE_LARGE, False, (10, 5, 20, 3), dev)
-    others = {f"{key}_{tag}": value for tag, one in timed.items() for key, value in one.items()}
+    main = time_dense("OLOP-like", kl_inputs(TREES, rng, dev), TREES, False, (100, 20, 500, 20),
+                      dev)
+    large = time_dense("OLOP-like", kl_inputs(DENSE_LARGE, rng, dev), DENSE_LARGE, False,
+                       (10, 5, 20, 3), dev)
+    others = {f"{key}_n{DENSE_LARGE}": value for key, value in large.items()}
     return {"name": "kl_bound", "route": "cuda", "source": "rl_agents_torch/csrc/kl_bound.cu",
+            "replaces": "rl_agents_tpu/ops/pallas_kl.py:40", "launches": None,
+            "max_abs_err": worst, **main, "library_ms": None, "on_main_path": False, **others}
+
+
+def pair_bound_of(call) -> tuple:
+    """(bound ms, "bytes" or "operations", f32 ops, Newton trips, lane use,
+    bytes) of one paired call: each kept element reads an 8 B offset, a 4
+    B sum and an 8 B count and writes two 4 B bounds; the mask and the
+    threshold (or its table) are read once. Trips are those the inputs need:
+    none where a chain skips the loop (n == 0, or its interval is a point).
+    A lane steps both chains until both froze, so a warp takes as many trips
+    as its longest lane's longer chain; lane use is the share of the two
+    chains' trips that do work."""
+    from rl_agents_torch.ops.kl_bound import kl_bound_trips
+    from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS
+
+    _sum, count, at, threshold, mask = call
+    s, n, t, keep = (v.flatten() for v in gathered(*call))
+    mu = s / torch.clamp(n, min=1.0)
+    live = keep & (n != 0)
+    sides = [torch.where(live & (mu != point), kl_bound_trips(s, n, t, lower=lower,
+                                                              iters=NEWTON_MAX_ITERATIONS), 0)
+             for lower, point in ((False, 1.0), (True, 0.0))]
+    trips = int(sides[0].sum() + sides[1].sum())
+    loop = torch.nn.functional.pad(torch.maximum(*sides), (0, -s.numel() % 32))
+    lane_use = trips / max(2 * 32 * int(loop.view(-1, 32).amax(dim=1).sum()), 1)
+    elements = int(keep.sum())
+    bytes_moved = 28 * elements + (0 if mask is None else mask.numel()) + 4 * threshold.numel()
+    ops = trips * KL_OPS_PER_TRIP + elements * (2 * KL_OPS_SETUP - 2)
+    bytes_s, ops_s = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    return (max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations", ops, trips,
+            lane_use, bytes_moved)
+
+
+def time_pair(label: str, call, dev, reps=(100, 20, 500, 20)) -> dict:
+    """The paired launch against the two dense launches per depth that it
+    replaced (upper and lower of each row of ``at``), on the same inputs in
+    the same run: device ms by CUDA-graph replay, ms per eager call."""
+    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bounds_pair_, kl_bounds_pair_torch_
+    from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS as ITERS
+
+    _sum, count, at, threshold, mask = call
+    ucb, lcb = torch.full_like(_sum, -7.0), torch.full_like(_sum, 7.0)
+    ms, call_ms, plain_ms = time_kernel(
+        lambda: kl_bounds_pair_(ucb, lcb, _sum, count, at, threshold, mask),
+        lambda: kl_bounds_pair_torch_(ucb, lcb, _sum, count, at, threshold, mask), *reps)
+    s, n, t, keep = gathered(*call)
+    rows = [tuple(v[h][keep[h]].contiguous() for v in (s, n, t)) for h in range(len(s))] \
+        if at.dim() == 2 else [tuple(v[keep] for v in (s, n, t))]
+
+    def dense():
+        for row in rows:
+            kl_bound(*row, iters=ITERS, device=dev)
+            kl_bound(*row, lower=True, iters=ITERS, device=dev)
+
+    dense_ms, dense_call_ms, _ = time_kernel(dense, lambda: None, reps[0], reps[1], reps[2], 1)
+    # what the pair of chains costs beside one chain: each side alone over all
+    # the entries in one dense launch, and the paired launch with no trip
+    s, n, t = (v[keep] for v in (s, n, t))
+    one_chain = [time_kernel(lambda: kl_bound(s, n, t, lower=lower, iters=ITERS, device=dev),
+                             lambda: None, reps[0], reps[1], 1, 1)[0] for lower in (False, True)]
+    floor_ms = time_kernel(lambda: kl_bounds_pair_(ucb, lcb, _sum, count, at, threshold, mask,
+                                                   iters=0), lambda: None, reps[0], reps[1], 1,
+                           1)[0]
+    bound_ms, bound_by, ops, trips, lane_use, bytes_moved = pair_bound_of(call)
+    print(f"kl_bounds_pair_ {label}, at {tuple(at.shape)}: kernel {ms!r} ms on the device, "
+          f"{call_ms!r} ms per eager call, plain {plain_ms!r} ms; the {2 * len(rows)} dense "
+          f"launches it replaced: {dense_ms!r} ms on the device, {dense_call_ms!r} ms eager; "
+          f"bound {bound_ms!r} ms by {bound_by} ({bytes_moved} bytes, {ops} f32 ops over {trips} "
+          f"Newton trips, lane use {lane_use!r}), {bound_ms / ms!r} of the bound; iters=0 "
+          f"(launch, loads, stores) {floor_ms!r} ms; one dense launch over the same entries, "
+          f"upper {one_chain[0]!r} ms, lower {one_chain[1]!r} ms")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, dense_ms=dense_ms,
+                dense_call_ms=dense_call_ms, dense_launches=2 * len(rows), bound_ms=bound_ms,
+                bound_by=bound_by, lane_use=lane_use, trips=trips, floor_ms=floor_ms,
+                one_chain_upper_ms=one_chain[0], one_chain_lower_ms=one_chain[1])
+
+
+def check_kl_bounds_pair(dev, dense: dict) -> dict:
+    """The paired form against its plain version, exactly within
+    ``KL_TOLERANCE``, on every call that MDP-GapE plans (the last episode's:
+    4096 trees and 1 tree at the config's confidence 1.0, 4096 trees at the
+    agent's default 0.9) and stochastic GBOP plans (every depth of the last
+    episode: on Sailing, negative sums; on highway at the JAX bench's 512
+    trees) made, iters 24 and 100; every entry off the path or the mask
+    keeps its value. The dense form is held against the same plain solves on
+    the same inputs (into ``dense``). Timed on the MDP-GapE calls and on the
+    first and the last depth of the GBOP episodes, beside the dense launches
+    they replaced."""
+    from rl_agents_torch.ops.kl_bound import kl_bound, kl_bounds_pair_, kl_bounds_pair_torch_
+    from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS
+
+    recorded = {"MDP-GapE confidence 1.0, 4096 trees": gape_pair_calls(dev, GAPE, TREES),
+                "MDP-GapE confidence 1.0, 1 tree": gape_pair_calls(dev, GAPE, 1),
+                "MDP-GapE confidence 0.9, 4096 trees": gape_pair_calls(dev, GAPE_DEFAULT, TREES),
+                "stochastic GBOP on Sailing": sailing_gbop_pair_calls(dev),
+                "stochastic GBOP on highway": highway_gbop_pair_calls(dev)}
+    worst = dense_worst = 0.0
+    for label, calls in recorded.items():
+        for i, call in enumerate(calls):
+            _sum, count, at, threshold, mask = call
+            written = torch.zeros(_sum.shape, dtype=torch.bool, device=dev)
+            per_tree = at.reshape(-1, _sum.shape[0]).t()
+            written.view(_sum.shape[0], -1).scatter_(1, per_tree, True)
+            if mask is not None:
+                written &= mask.reshape((-1,) + (1,) * (_sum.dim() - 1))
+            s, n, t, keep = gathered(*call)
+            for iters in (24, NEWTON_MAX_ITERATIONS):
+                bases = (torch.full_like(_sum, -7.0), torch.full_like(_sum, 7.0))
+                got = kl_bounds_pair_(*(b.clone() for b in bases), *call, iters=iters)
+                want = kl_bounds_pair_torch_(*(b.clone() for b in bases), *call, iters=iters)
+                torch.cuda.synchronize()
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                untouched = all(torch.equal(g[~written], b[~written]) for g, b in zip(got, bases))
+                # the dense form on the same entries, one launch a side
+                dense_err = 0.0
+                for lower, plain in ((False, want[0]), (True, want[1])):
+                    solved = plain.view(_sum.shape[0], -1).gather(1, per_tree).t().reshape(at.shape)
+                    out = kl_bound(s[keep], n[keep], t[keep], lower=lower, iters=iters, device=dev)
+                    dense_err = max(dense_err, float((out - solved[keep]).abs().max()))
+                print(f"kl_bounds_pair_ {label} call {i}, arena {tuple(_sum.shape)}, at "
+                      f"{tuple(at.shape)}, iters={iters}: max|kernel - plain| = {err!r}, entries "
+                      f"off the path or the mask unchanged: {untouched}; dense form on the same "
+                      f"inputs: {dense_err!r}")
+                expect(err <= KL_TOLERANCE and untouched,
+                       f"kl_bounds_pair_ disagrees with its plain version: {err!r}, "
+                       f"unchanged elsewhere: {untouched}")
+                expect(dense_err <= KL_TOLERANCE,
+                       f"kl_bound disagrees with its plain version: {dense_err!r}")
+                worst, dense_worst = max(worst, err), max(dense_worst, dense_err)
+    dense["max_abs_err"] = max(dense["max_abs_err"], dense_worst)
+
+    timed = {}
+    for label, tag in (("MDP-GapE confidence 1.0, 4096 trees", "gape_config"),
+                       ("MDP-GapE confidence 1.0, 1 tree", "gape_config_n1"),
+                       ("MDP-GapE confidence 0.9, 4096 trees", "gape_default")):
+        timed[tag] = time_pair(label, recorded[label][0], dev)
+    for label, tag in (("stochastic GBOP on Sailing", "gbop"),
+                       ("stochastic GBOP on highway", "highway_gbop")):
+        calls = recorded[label]
+        timed[f"{tag}_first"] = time_pair(f"{label}, first depth", calls[0], dev)
+        timed[f"{tag}_last"] = time_pair(f"{label}, last depth", calls[-1], dev)
+    del recorded
+    main = timed.pop("gape_config")
+    others = {f"{key}_{tag}": value for tag, one in timed.items() for key, value in one.items()}
+    return {"name": "kl_bounds_pair_", "route": "cuda",
+            "source": "rl_agents_torch/csrc/kl_bound.cu",
             "replaces": "rl_agents_tpu/ops/pallas_kl.py:40", "launches": None,
             "max_abs_err": worst, **main, "library_ms": None, "on_main_path": True, **others}
 
@@ -972,13 +1110,14 @@ def check_gape_batch_path(dev) -> dict:
         reset_newton()
         times = timed_plans(plan, plans)
         launches = read_launches()
-        expect_launches(f"MDP-GapE batch path, {plans} plans", launches,
-                        plans * GAPE_KL_LAUNCHES, 0)
+        expect_launches(f"MDP-GapE batch path, {plans} plans", launches, 0, 0,
+                        plans * GAPE_KL_LAUNCHES)
         config_launches = config_launches or launches
         report_plans(f"mdp_gape_plan_batch B={TREES} episodes={kw['episodes']} (+1) "
                      f"horizon={kw['horizon']} width={kw['width']} confidence={kw['confidence']}",
                      times, steps, "env-steps")
-        print(f"  {launches['kl_bound'] // plans} kl_bound launches per plan; {plans} plans: "
+        print(f"  {launches['kl_bounds_pair_'] // plans} kl_bounds_pair_ launches per plan "
+              f"(the dense form: {launches['kl_bound']}); {plans} plans: "
               f"{newton_line()}, "
               f"in blocks of {port_math.NEWTON_BLOCK}")
         if read_back:  # the trips the data needs: the same plan, a read-back every trip
@@ -1080,11 +1219,12 @@ def check_gbop_batch_path(dev) -> dict:
     reset_sweeps()
     times = timed_plans(plan, SAILING_PLANS)
     launches = read_launches()
-    expect_launches(f"stochastic GBOP batch path, {SAILING_PLANS} plans", launches,
-                    SAILING_PLANS * GBOP_KL_LAUNCHES, 0)
+    expect_launches(f"stochastic GBOP batch path, {SAILING_PLANS} plans", launches, 0, 0,
+                    SAILING_PLANS * GBOP_KL_LAUNCHES)
     report_plans(f"gbop_stochastic_plan_batch B={TREES} episodes={E} horizon={H} "
                  f"width={GBOP['width']}", times, TREES * E * H, "sample-steps")
-    print(f"  {launches['kl_bound'] // SAILING_PLANS} kl_bound launches per plan; "
+    print(f"  {launches['kl_bounds_pair_'] // SAILING_PLANS} kl_bounds_pair_ launches per plan "
+          f"(the dense form: {launches['kl_bound']}); "
           f"{SAILING_PLANS} plans: {sweep_line(TREES)}")
     # one episode of the three profiled: a whole plan's trace (~51k kernels)
     # lost half its records on an H100 (PERF.md §4)
@@ -1130,7 +1270,8 @@ def check_gbop_batch_path(dev) -> dict:
     reset_sweeps()
     result = []
     ms = timed_plans(lambda: result.append(wide()), 1)[0]
-    expect_launches("stochastic GBOP, three slots, 1 plan", read_launches(), GBOP_KL_LAUNCHES, 0)
+    expect_launches("stochastic GBOP, three slots, 1 plan", read_launches(), 0, 0,
+                    GBOP_KL_LAUNCHES)
     print(f"gbop_stochastic_plan_batch B={GBOP_WIDE_TREES} width=3: {ms!r} ms per plan, "
           f"{GBOP_WIDE_TREES * E * H / (ms / 1e3)!r} sample-steps/s; {newton_line()}, in blocks "
           f"of {port_math.NEWTON_BLOCK}; {sweep_line(GBOP_WIDE_TREES)}")
@@ -1230,7 +1371,8 @@ def check_opd_batch_path(dev) -> dict:
 
 
 def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan: int,
-                     kl_bound_indexed_per_plan: int, check=None) -> dict:
+                     kl_bound_indexed_per_plan: int, check=None,
+                     kl_bounds_pair_per_plan: int = 0) -> dict:
     """One episode through ``load_environment`` / ``load_agent`` /
     ``Evaluation.test`` on the card; returns the launches of each KL wrapper,
     which must be the given numbers per planning step. ``check(env, agent)``
@@ -1265,7 +1407,8 @@ def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan
     if not np.isfinite(episode["total_reward"]) or episode["length"] < 1:
         raise AssertionError(f"{name} agent path: invalid episode {episode}")
     expect_launches(f"{name} agent path", launches, kl_bound_per_plan * episode["length"],
-                    kl_bound_indexed_per_plan * episode["length"])
+                    kl_bound_indexed_per_plan * episode["length"],
+                    kl_bounds_pair_per_plan * episode["length"])
     return launches
 
 
@@ -1322,7 +1465,7 @@ def drop_case(dev):
 
 
 def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, close, work: int,
-                       unit: str, kl_bound: int = 0, kl_bound_indexed: int = 0,
+                       unit: str, kl_bounds_pair: int = 0, kl_bound_indexed: int = 0,
                        trees: int | None = None, validate=None, short=None) -> dict:
     """One highway batch path: ``run(device, n, noise)`` plans the first
     ``n`` trees (noise None: drawn from a generator on the device).
@@ -1341,15 +1484,15 @@ def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, clos
     reset_sweeps()
     times = timed_plans(plan, HW_PLANS)
     launches = read_launches()
-    expect_launches(f"{name}, {HW_PLANS} plans", launches, HW_PLANS * kl_bound,
-                    HW_PLANS * kl_bound_indexed)
+    expect_launches(f"{name}, {HW_PLANS} plans", launches, 0, HW_PLANS * kl_bound_indexed,
+                    HW_PLANS * kl_bounds_pair)
     ms = report_plans(f"{name} B={trees}", times, work, unit)
     print(f"  {launches} launches in {HW_PLANS} plans; {sweep_line(trees)}")
     noise = make_noise(trees)
     results = []
     if short is None:
         profiled = profile_plan(lambda: results.append(run(dev, trees, noise)), host_events=False)
-        kl_expected = kl_bound + kl_bound_indexed
+        kl_expected = kl_bounds_pair + kl_bound_indexed
     else:
         episodes, run_short, kl_expected = short
         profiled = profile_plan(lambda: run_short(dev, trees), host_events=False)
@@ -1461,7 +1604,7 @@ def check_highway_batch_paths(dev) -> dict:
         ("action", "visited", "n_count", "c_count", "sa_count", "sa_keys", "sa_child", "sa_n",
          "used"),
         ("sa_cum_reward", "sa_mu_ucb", "sa_mu_lcb", "value_lower", "value_upper"),
-        HW_GBOP_TREES * E * H, "sample-steps", kl_bound=HW_GBOP_KL_LAUNCHES,
+        HW_GBOP_TREES * E * H, "sample-steps", kl_bounds_pair=HW_GBOP_KL_LAUNCHES,
         trees=HW_GBOP_TREES,
         validate=lambda g: expect((g["n_count"].sum(axis=1) == E * H).all()
                                   and (g["sa_mu_lcb"] <= g["sa_mu_ucb"]).all(),
@@ -2896,7 +3039,7 @@ MG_PROFILED = 5  # episodes of the profiled plan
 # at gamma 0.7 is 35 episodes x horizon 5, two next-state slots, confidence 1
 GRID_GAPE = dict(num_actions=4, episodes=35, horizon=5, gamma=0.7, accuracy=0.0, confidence=1.0,
                  transition_threshold_coeff=0.1, width=2)
-GRID_GAPE_KL_LAUNCHES = 2 * (GRID_GAPE["episodes"] + 1) * GRID_GAPE["horizon"]
+GRID_GAPE_KL_LAUNCHES = GRID_GAPE["episodes"] + 1  # kl_bounds_pair_, one an episode
 DUMMY_OLOP_EPISODES = 35  # DummyEnv/agents/kl-olop.json: budget 200 at gamma 0.7
 PENDULUM_OLOP_EPISODES = 15  # Pendulum/OLOPAgent.json: budget 200 at gamma 0.9
 LPV_STEPS = 40
@@ -3035,7 +3178,7 @@ def check_minigrid_paths(dev) -> dict:
 
 def check_grid_and_dynamics_paths(dev) -> dict:
     """MDP-GapE on ``DummyEnv/gridenv_stoch.json`` at ``mdp-gape.json``'s 35 x
-    5, 4096 trees, two dense ``kl_bound`` launches per (episode, depth) step,
+    5, 4096 trees, one ``kl_bounds_pair_`` launch per episode,
     the first 64 trees against the CPU plan under the same draws (the grid's
     drop uniforms injected); then ``mdp-gape.json`` on the grid and
     ``kl-olop.json`` and ``brue.json`` on ``dynamics.json``, 3 steps each."""
@@ -3076,7 +3219,7 @@ def check_grid_and_dynamics_paths(dev) -> dict:
                 ("actions", "used", "d_count", "d_children", "c_count", "c_children",
                  "c_n_children", "c_child_keys"),
                 ("d_mu_ucb", "d_mu_lcb", "d_value_upper", "d_value_lower"), CPU_SUBSET)
-    expect_launches("MDP-GapE on gridenv_stoch, 1 plan", launches, GRID_GAPE_KL_LAUNCHES, 0)
+    expect_launches("MDP-GapE on gridenv_stoch, 1 plan", launches, 0, 0, GRID_GAPE_KL_LAUNCHES)
     ms = report_plans(f"mdp_gape_plan_batch on gridenv_stoch B={TREES} "
                       f"episodes={GRID_GAPE['episodes']}+1 horizon={GRID_GAPE['horizon']}",
                       times, TREES * steps[0] * steps[1], "env-steps")
@@ -3084,8 +3227,8 @@ def check_grid_and_dynamics_paths(dev) -> dict:
     result = {"mdp_gape_grid_batch_plans": {"launches": launches, "ms": ms}}
     result["mdp_gape_grid_agent"] = {"launches": check_agent_path(
         dev, "MDPGapEAgent (DummyEnv/agents/mdp-gape.json) on gridenv_stoch.json",
-        slice9_env(DUMMY / "gridenv_stoch.json"), DUMMY / "agents" / "mdp-gape.json",
-        GRID_GAPE_KL_LAUNCHES, 0)}
+        slice9_env(DUMMY / "gridenv_stoch.json"), DUMMY / "agents" / "mdp-gape.json", 0, 0,
+        kl_bounds_pair_per_plan=GRID_GAPE_KL_LAUNCHES)}
     result["kl_olop_dynamics_agent"] = {"launches": check_agent_path(
         dev, "OLOPAgent (DummyEnv/agents/kl-olop.json) on dynamics.json",
         slice9_env(DUMMY / "dynamics.json"), DUMMY / "agents" / "kl-olop.json", 0,
@@ -3869,9 +4012,9 @@ def check_display_path(dev, dqn_agent, dqn_handle, bftq_agent, bftq_state) -> di
           f"(the CPU network's own cloud gives {len(cpu_points['frontier_qc'])})")
     return {"display_olop_agent": {"launches": got["launches"],
                                    "s_per_step": got["seconds"] / steps},
-            "attention_matrix": {"launches": {"kl_bound": 0, "kl_bound_indexed_": 0},
+            "attention_matrix": {"launches": dict(NO_LAUNCHES),
                                  "s": attention_s},
-            "bftq_frontier": {"launches": {"kl_bound": 0, "kl_bound_indexed_": 0},
+            "bftq_frontier": {"launches": dict(NO_LAUNCHES),
                               "s": frontier_s}}
 
 
@@ -3898,7 +4041,8 @@ def main():
         print(log.read_text().strip())
 
     phase("3. kernels against their plain versions")
-    kernels = [check_kl_bound(dev), check_kl_bound_indexed(dev)]
+    dense = check_kl_bound(dev)
+    kernels = [dense, check_kl_bound_indexed(dev), check_kl_bounds_pair(dev, dense)]
 
     cartpole = json.loads((CONFIGS / "CartPoleEnv" / "env.json").read_text())
     cartpole["max_episode_steps"] = AGENT_MAX_STEPS
@@ -3920,8 +4064,8 @@ def main():
     garnet = json.loads((CONFIGS / "FiniteMDPEnv" / "env_garnet.json").read_text())
     garnet["max_episode_steps"] = GARNET_AGENT_STEPS
     paths["mdp_gape_agent"] = check_agent_path(
-        dev, "MDPGapEAgent", garnet, CONFIGS / "FiniteMDPEnv" / "agents" / "mdp-gape.json",
-        GAPE_KL_LAUNCHES, 0)
+        dev, "MDPGapEAgent", garnet, CONFIGS / "FiniteMDPEnv" / "agents" / "mdp-gape.json", 0, 0,
+        kl_bounds_pair_per_plan=GAPE_KL_LAUNCHES)
     phase("10. stochastic GBOP batch path")
     if allocation(SAILING_BUDGET, SAILING_GAMMA) != (GBOP["episodes"], GBOP["horizon"]):
         raise AssertionError("gbop.json's budget no longer splits into 3 episodes x horizon 55")
@@ -3935,8 +4079,8 @@ def main():
     sailing["max_episode_steps"] = SAILING_AGENT_STEPS
     agents = CONFIGS / "SailingEnv" / "agents"
     paths["gbop_stochastic_agent"] = check_agent_path(
-        dev, "StochasticGraphBasedPlannerAgent", sailing, agents / "gbop.json",
-        GBOP_KL_LAUNCHES, 0)
+        dev, "StochasticGraphBasedPlannerAgent", sailing, agents / "gbop.json", 0, 0,
+        kl_bounds_pair_per_plan=GBOP_KL_LAUNCHES)
     paths["gbop_d_agent"] = check_agent_path(dev, "GraphBasedPlannerAgent", sailing,
                                              agents / "gbop-d.json", 0, 0)
     paths["opd_agent"] = check_agent_path(dev, "DeterministicPlannerAgent", sailing,
@@ -4063,8 +4207,11 @@ def main():
     for kernel in kernels:
         kernel["launches_by_path"] = {path: counts[kernel["name"]] for path, counts in paths.items()}
         kernel["launches"] = sum(kernel["launches_by_path"].values())
-        if kernel["launches"] == 0:
+        if kernel["on_main_path"] and kernel["launches"] == 0:
             raise AssertionError(f"no path launched {kernel['name']}")
+        if not kernel["on_main_path"] and kernel["launches"] != 0:
+            raise AssertionError(f"{kernel['name']} is on no main path, yet launched "
+                                 f"{kernel['launches']} times")
 
     phase("43. summary")
     print(card)

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rl_agents_torch.utils.device import resolve_device
+
 
 class Batch(NamedTuple):
     state: torch.Tensor
@@ -69,12 +71,12 @@ def n_step_collapse(data: Batch, start, size, n_steps: int, gamma: float,
 
 class ReplayMemory:
     def __init__(self, capacity: int, obs_shape, n_steps: int = 1, gamma: float = 0.99,
-                 device="cpu", generator: torch.Generator | None = None,
+                 device="cuda", generator: torch.Generator | None = None,
                  obs_dtype=torch.float32):
         self.capacity = int(capacity)
         self.n_steps = n_steps
         self.gamma = gamma
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.generator = generator
         self.position = 0
         self.size = 0

@@ -12,13 +12,16 @@ acting as placeholders bounded by ``max_next_states_count``
 bounds are tightened by masked Bellman sweeps over all visited nodes.
 
 Every arena field carries a leading tree axis B and rows are indexed directly.
-The two KL bounds of a step (upper and lower) are two ``kl_upper_bound`` calls
-over the B visited (node, action, next state) triples: on a CUDA device two
-launches of the dense ``kl_bound`` kernel per (episode, depth) step,
-``2 * episodes * horizon`` a plan. A tree whose sweeps converged freezes under
-a mask while the others go on; the host reads the number of trees still
-sweeping once per sweep, and the Newton solve of the constrained expectation
-(next-state width above 1) reads back once per block of trips.
+Both KL bounds of a step (upper and lower) come from one ``kl_bounds_pair_``
+call at the B visited (node, action, next state) entries: on a CUDA device
+one launch per (episode, depth) step, ``episodes * horizon`` a plan. It cannot
+wait for the episode's end, as MDP-GapE's does: the graph merges nodes by
+observation, so a walk can come back to an entry within one episode, and the
+next step's optimistic choice reads ``sa_mu_ucb``. A tree whose sweeps
+converged freezes under a mask while the others go on; the host reads the
+number of trees still sweeping once per sweep, and the Newton solve of the
+constrained expectation (next-state width above 1) reads back once per block
+of trips.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ from rl_agents_torch.agents.tree_search.graph_based import GraphBasedPlannerAgen
 from rl_agents_torch.agents.tree_search.olop import parse_threshold
 from rl_agents_torch.envs.base import FunctionalEnv, params_to
 from rl_agents_torch.ops.hashing import obs_key, table_init, table_lookup_or_insert
+from rl_agents_torch.ops.kl_bound import kl_bounds_pair_
 from rl_agents_torch.utils.device import resolve_device
-from rl_agents_torch.utils.math import fma, kl_upper_bound, max_expectation_under_constraint
+from rl_agents_torch.utils.math import fma, max_expectation_under_constraint
 from rl_agents_torch.utils.noise import gumbel, noise_tensor
 
 
@@ -216,7 +220,6 @@ def gbop_stochastic_plan(env: FunctionalEnv, params, states0, obs0,
             at = (rows, node, action, slot)
             cnt = sa_count[at] + 1
             cum = sa_cum_reward[at] + out.reward.to(f32)
-            cnt_f = cnt.to(f32)
             visited[rows, node] = True
             n_count[rows, node] += 1
             c_count[rows, node, action] += 1
@@ -225,9 +228,11 @@ def gbop_stochastic_plan(env: FunctionalEnv, params, states0, obs0,
             sa_n[rows, node, action] += insert
             sa_count[at] = cnt
             sa_cum_reward[at] = cum
-            sa_mu_ucb[at] = kl_upper_bound(cum, cnt_f, reward_threshold, device=device)
-            sa_mu_lcb[at] = kl_upper_bound(cum, cnt_f, reward_threshold, lower=True,
-                                           device=device)
+            # both bounds of the entry, at its offset (node * A + action) * W + slot
+            # in the tree's [N, A, W] row
+            offset = torch.add(slot, torch.add(action, node, alpha=A), alpha=W)
+            kl_bounds_pair_(sa_mu_ucb, sa_mu_lcb, sa_cum_reward, sa_count, offset,
+                            reward_threshold)
             state, obs = out.state, out.obs
         value_lower, value_upper = value_iteration(value_lower, value_upper)
 

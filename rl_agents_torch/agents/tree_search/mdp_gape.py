@@ -10,14 +10,23 @@ challenger = max UCB, sample the more uncertain (mdp_gape.py:238-249); stop
 when ``challenger.U - best.L < accuracy`` (mdp_gape.py:94-110).
 
 Every arena field carries a leading tree axis B and rows are indexed directly;
-the JAX package's one-hot masks exist only for the TPU. The two KL bounds of a
-step (upper and lower) are two ``kl_upper_bound`` calls over the B visited
-nodes: on a CUDA device two launches of the dense ``kl_bound`` kernel per
-(episode, depth) step. A tree whose stopping rule fired freezes under a mask
-while the others go on, and the planner itself reads nothing back to the host
-inside the episode loop: every path is exactly ``horizon`` deep, so the backup
-is a fixed number of steps. The one read-back is the Newton solve's of each
-chance backup, once per block of trips (``utils/math.py::newton_iteration``).
+the JAX package's one-hot masks exist only for the TPU. A tree whose stopping
+rule fired freezes under a mask while the others go on, and the planner itself
+reads nothing back to the host inside the episode loop: every path is exactly
+``horizon`` deep, so the backup is a fixed number of steps. The one read-back
+is the Newton solve's of each chance backup, once per block of trips
+(``utils/math.py::newton_iteration``).
+
+The JAX package solves each visited node's KL bounds (upper and lower) at
+the step that visits it. Here one ``kl_bounds_pair_`` call solves both bounds
+of every node of an episode's path ``[H, B]`` after the descent and before
+the backup: on a CUDA device one launch per episode. The deferral gives the
+same arenas. Nothing reads ``d_mu_ucb`` or ``d_mu_lcb`` before the backup
+(the descent reads only the chance nodes' value bounds), and the nodes of one
+path lie at distinct depths, so each is updated once per episode and the
+call sees the count and sum its step wrote. The count-dependent threshold is
+read from a table of ``reward_threshold`` over every count a node can reach
+(at most ``episodes + 1``), made once per plan by the same function.
 
 Like the JAX package's loop (``episode <= episodes``), a plan runs up to
 ``episodes + 1`` episodes. The decision arena is sized for all of them
@@ -35,8 +44,9 @@ from rl_agents_torch.agents.tree_search.mcts import gumbel, noise_tensor
 from rl_agents_torch.agents.tree_search.olop import OLOPAgent, parse_threshold
 from rl_agents_torch.envs.base import FunctionalEnv, params_to
 from rl_agents_torch.ops.hashing import obs_key
+from rl_agents_torch.ops.kl_bound import kl_bounds_pair_
 from rl_agents_torch.utils.device import resolve_device
-from rl_agents_torch.utils.math import fma, kl_upper_bound, max_expectation_under_constraint
+from rl_agents_torch.utils.math import fma, max_expectation_under_constraint
 
 
 class GapETree(NamedTuple):
@@ -62,6 +72,18 @@ class GapETree(NamedTuple):
     c_n_children: Any   # [B, Nc] i64
     d_used: Any         # [B] i64
     c_used: Any         # [B] i64
+
+
+def reward_threshold(count, horizon: int, num_actions: int, confidence: float) -> torch.Tensor:
+    """BAI threshold (mdp_gape.py:33-36) of the int64 ``count``, float32 on
+    its device: 3 log(1 + log(count)) + H log(A) + log(1 / (1 - confidence)),
+    with the count clamped to at least 1."""
+    f32 = torch.float32
+    confidence = torch.tensor(confidence, dtype=f32, device=count.device)
+    rest = torch.log(1.0 / (1.0 - confidence))
+    actions = float(np.float32(horizon * np.log(num_actions)))
+    c = torch.clamp(count.to(f32), min=1.0)
+    return 3.0 * torch.log(1.0 + torch.log(c)) + actions + rest
 
 
 def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | None,
@@ -95,10 +117,8 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
         [(np.float32(1) - g32 ** np.float32(k)) / (np.float32(1) - g32) for k in range(H + 1)],
         dtype=f32, device=device)
     gamma = torch.tensor(g32, device=device)
-    confidence = torch.tensor(confidence, dtype=f32, device=device)
-    # the part of the BAI threshold that does not depend on the count
-    threshold_rest = torch.log(1.0 / (1.0 - confidence))
-    threshold_actions = float(np.float32(H * np.log(A)))
+    # the reward threshold of every count a node reaches: one visit an episode
+    threshold_table = reward_threshold(torch.arange(E + 2, device=device), H, A, confidence)
     transition_threshold = (torch.tensor(transition_threshold_coeff, dtype=f32, device=device)
                             * torch.log(torch.tensor(float(E), dtype=f32, device=device)))
     if noise is not None:
@@ -110,12 +130,6 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
 
     def init_upper(depth):
         return upper_table[(H - depth).clamp(min=0)]
-
-    def reward_threshold(count):
-        """BAI threshold (mdp_gape.py:33-36): 3 log(1 + log(count))
-        + H log(A) + log(1 / (1 - confidence))."""
-        c = torch.clamp(count.to(f32), min=1.0)
-        return 3.0 * torch.log(1.0 + torch.log(c)) + threshold_actions + threshold_rest
 
     def full(shape, fill, dtype):
         return torch.full(shape, fill, dtype=dtype, device=device)
@@ -265,17 +279,16 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
             reward = torch.where(done, 0.0, out.reward.to(f32))
             cum = d_cum_reward[rows, child] + reward
             cnt = d_count[rows, child] + 1
-            cnt_f = cnt.to(f32)
-            threshold = reward_threshold(cnt)
             put(c_count, chance, c_count[rows, chance] + 1, active)
             put(d_count, child, cnt, active)
             put(d_cum_reward, child, cum, active)
             put(d_done, child, done, active)
-            put(d_mu_ucb, child, kl_upper_bound(cum, cnt_f, threshold, device=device), active)
-            put(d_mu_lcb, child, kl_upper_bound(cum, cnt_f, threshold, lower=True, device=device),
-                active)
             path[h] = child
             node, state = child, out.state
+
+        # the KL bounds of the path's nodes (mdp_gape.py:200-212), both in one
+        # call, deferred to here: see the module docstring
+        kl_bounds_pair_(d_mu_ucb, d_mu_lcb, d_cum_reward, d_count, path, threshold_table, active)
 
         # backup to root (mdp_gape.py:214-226, 288-305): the leaf lies at
         # depth H, so H chance backups between H + 1 decision backups

@@ -7,14 +7,21 @@ Replaces the Pallas TPU kernel ``rl_agents_tpu/ops/pallas_kl.py::_kl_bound_kerne
 per-element freeze reproduces that solver's per-element stop, so the OLOP
 planner calls this in its place.
 
-Two launch forms share one device solve:
+Three launch forms share one device solve:
 
 - ``kl_bound``, dense: broadcastable f32 inputs, a new output. It moves 16
   bytes per element and at large sizes is bound by memory bytes.
-- ``kl_bound_indexed_``, the planner's form: solves the nodes of one OLOP
+- ``kl_bound_indexed_``, OLOP's form: solves the nodes of one OLOP
   episode's path ``nodes [H, B]`` inside a ``[B, N]`` tree arena and writes
   them in place, one launch per episode. At the planner's 8 x 4096 nodes it
   is bound by launch latency and by the longest Newton chain of a warp.
+- ``kl_bounds_pair_``, MDP-GapE's and stochastic GBOP's form: solves the
+  upper and the lower bound of the entries at flat offsets ``at [..., B]``
+  of ``[B, ...]`` arenas and writes both in place, under an optional
+  per-tree mask, with a scalar threshold or one indexed by each entry's
+  count. One thread steps both Newton chains side by side. Its wrapper does
+  no broadcast, cast, copy or allocation: it checks its arguments and makes
+  one call.
 
 One thread per element, all trips in registers, and a thread stops once its
 element froze (see the note in the CUDA source).
@@ -37,6 +44,7 @@ import torch
 
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import (
+    NEWTON_MAX_ITERATIONS,
     _bounded_newton_step,
     bernoulli_kullback_leibler,
     d_bernoulli_kullback_leibler_dq,
@@ -96,6 +104,10 @@ def _load():
         lib.kl_bound_indexed_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         lib.kl_bound_indexed_launch.restype = ctypes.c_int
+        lib.kl_bounds_pair_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [
+            ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_float,
+                                                               ctypes.c_void_p]
+        lib.kl_bounds_pair_launch.restype = ctypes.c_int
         _library = lib
     return _library
 
@@ -265,3 +277,129 @@ def kl_bound_indexed_(out, _sum, count, nodes, threshold, lower: bool = False,
 
 
 kl_bound_indexed_.launches = 0
+
+
+def kl_bounds_pair_torch_(ucb, lcb, _sum, count, at, threshold, mask=None,
+                          iters: int = NEWTON_MAX_ITERATIONS, eps: float = 1e-2):
+    """Plain PyTorch version of the paired kernel: gather the entries at the
+    offsets, solve the upper and then the lower bound with ``kl_bound_torch``,
+    scatter both under the mask; returns ``(ucb, lcb)``. Masked-out trees are
+    neither read nor checked. An offset outside its tree's row raises
+    (``gather`` does not wrap negatives), and so does a count outside the
+    threshold table."""
+    trees = _sum.shape[0]
+    row = lambda t: t.view(trees, -1)
+    per_tree = at.reshape(-1, trees).t()
+    if mask is not None:  # a masked-out tree reads and writes back its entry 0
+        per_tree = torch.where(mask[:, None], per_tree, 0)
+    n = row(count).gather(1, per_tree)
+    if threshold.dim() == 1:
+        outside = (n < 0) | (n >= threshold.numel())
+        if mask is not None:
+            outside &= mask[:, None]
+        if bool(outside.any()):
+            raise IndexError(f"kl_bounds_pair_: a count outside the threshold table of "
+                             f"{threshold.numel()} entries")
+        threshold = threshold[n.clamp(0, threshold.numel() - 1)]
+    s, n = row(_sum).gather(1, per_tree), n.to(torch.float32)
+    bounds = (kl_bound_torch(s, n, threshold, lower=False, iters=iters, eps=eps),
+              kl_bound_torch(s, n, threshold, lower=True, iters=iters, eps=eps))
+    for out, bound in zip((ucb, lcb), bounds):
+        if mask is not None:
+            bound = torch.where(mask[:, None], bound, row(out).gather(1, per_tree))
+        row(out).scatter_(1, per_tree, bound)
+    return ucb, lcb
+
+
+_PAIR_ARGS = (("ucb", torch.float32), ("lcb", torch.float32), ("sum", torch.float32),
+              ("count", torch.int64), ("at", torch.int64), ("threshold", torch.float32))
+
+
+def _check_pair(args, mask) -> torch.device:
+    device = args[0].device
+    for value, (name, dtype) in zip(args, _PAIR_ARGS):
+        if not isinstance(value, torch.Tensor):
+            raise TypeError(f"kl_bounds_pair_: {name} must be a tensor, got {type(value).__name__}")
+        if value.dtype != dtype:
+            raise TypeError(f"kl_bounds_pair_: {name} must be {dtype}, got {value.dtype}")
+        if value.device != device:
+            raise ValueError(f"kl_bounds_pair_: {name} on {value.device}, expected {device} "
+                             "as ucb: one device")
+        if not value.is_contiguous():
+            raise ValueError(f"kl_bounds_pair_: {name} must be contiguous")
+    ucb, lcb, _sum, count, at, threshold = args
+    shape = ucb.shape
+    if len(shape) < 1 or lcb.shape != shape or _sum.shape != shape or count.shape != shape:
+        raise ValueError(f"kl_bounds_pair_: ucb, lcb, sum and count must share one [B, ...] "
+                         f"shape, got {tuple(shape)}, {tuple(lcb.shape)}, {tuple(_sum.shape)}, "
+                         f"{tuple(count.shape)}")
+    if at.dim() not in (1, 2) or at.shape[-1] != shape[0]:
+        raise ValueError(f"kl_bounds_pair_: at must be [{shape[0]}] or [H, {shape[0]}], "
+                         f"got {tuple(at.shape)}")
+    if threshold.dim() > 1 or threshold.numel() == 0:
+        raise ValueError(f"kl_bounds_pair_: threshold must be 0-d or a non-empty 1-d table, "
+                         f"got shape {tuple(threshold.shape)}")
+    if mask is not None:
+        if not isinstance(mask, torch.Tensor) or mask.dtype != torch.bool \
+                or mask.shape != shape[:1] or mask.device != device or not mask.is_contiguous():
+            raise ValueError(f"kl_bounds_pair_: mask must be a contiguous [{shape[0]}] bool "
+                             f"tensor on {device}")
+    return device
+
+
+def kl_bounds_pair_(ucb, lcb, _sum, count, at, threshold, mask=None,
+                    iters: int = NEWTON_MAX_ITERATIONS, eps: float = 1e-2):
+    """KL-UCB and KL-LCB of the arena entries at the offsets ``at``, written
+    into ``ucb`` and ``lcb`` in place; returns ``(ucb, lcb)``.
+
+    ``ucb``, ``lcb`` and ``sum`` are float32 arenas and ``count`` an int64
+    arena of one shape ``[B, ...]``; ``at`` is ``[B]`` or ``[H, B]`` int64 flat
+    offsets into one tree's row (the ``...`` part, row-major), element ``i``
+    of its flattened order belonging to tree ``i % B``; ``threshold`` is a
+    0-d float32 tensor, or a 1-d float32 table read at each entry's count;
+    ``mask`` is ``None`` or ``[B]`` bool (a False tree is neither read nor
+    written). All lie contiguous on one device. For every entry of a kept
+    tree, ``ucb`` and ``lcb`` there become the upper and the lower bound of
+    ``sum / count`` at that threshold, as ``kl_bound`` computes them at
+    ``iters`` and ``eps`` (the defaults are ``kl_upper_bound``'s); nothing
+    else changes. An offset repeated in one tree is solved twice from the
+    same inputs and gets the same values.
+
+    On a CUDA device this launches the kernel on the current stream (and
+    counts the launch in ``kl_bounds_pair_.launches``) or raises: an offset
+    outside the row or a count outside the table stops the kernel with a
+    device error. The launch reads nothing back and allocates nothing, so a
+    CUDA graph can capture it. On the CPU it runs ``kl_bounds_pair_torch_``.
+    """
+    args = (ucb, lcb, _sum, count, at, threshold)
+    device = _check_pair(args, mask)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"kl_bounds_pair_: unsupported device {device}")
+    if len({ucb.data_ptr(), lcb.data_ptr(), _sum.data_ptr()}) != 3:  # __restrict__ in the kernel
+        raise ValueError("kl_bounds_pair_: ucb, lcb and sum must be three arenas")
+    if device.type == "cpu":
+        return kl_bounds_pair_torch_(ucb, lcb, _sum, count, at, threshold, mask, iters=iters,
+                                     eps=eps)
+    if at.numel() == 0:
+        return ucb, lcb
+    lib = _load()
+    table = threshold.numel() if threshold.dim() == 1 else 0
+    # the raw handle of the current stream: torch.cuda.current_stream() would
+    # build a Stream object on every call
+    launch = lambda: lib.kl_bounds_pair_launch(
+        _sum.data_ptr(), count.data_ptr(), at.data_ptr(),
+        None if mask is None else mask.data_ptr(), threshold.data_ptr(), table,
+        ucb.data_ptr(), lcb.data_ptr(), ucb.shape[0], ucb.numel() // ucb.shape[0], at.numel(),
+        int(iters), float(eps), torch._C._cuda_getCurrentRawStream(device.index))
+    if device.index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(device):
+            err = launch()
+    if err != 0:
+        raise RuntimeError(f"kl_bounds_pair_ kernel launch failed with CUDA error {err}")
+    kl_bounds_pair_.launches += 1
+    return ucb, lcb
+
+
+kl_bounds_pair_.launches = 0

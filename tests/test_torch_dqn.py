@@ -91,6 +91,21 @@ def test_ring_writes_and_wraps_like_jax():
     assert torch.equal(fresh.data.state, mem_t.data.state) and fresh.position == 3
 
 
+def test_replay_memory_follows_the_device_rule():
+    """Like every entry point of the port, the replay memory defaults to the
+    card and raises without one; ``device="cpu"`` keeps its ring on the CPU."""
+    memory = TorchReplay(4, (2,), device="cpu")
+    assert memory.device == torch.device("cpu")
+    assert all(field.device.type == "cpu" for field in memory.data)
+    memory.push(np.ones(2, np.float32), 1, 0.5, np.zeros(2, np.float32), False)
+    assert memory.sample(3, indices=[0, 0, 0]).reward.tolist() == [0.5] * 3
+    if torch.cuda.is_available():
+        assert TorchReplay(4, (2,)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            TorchReplay(4, (2,))
+
+
 @pytest.mark.parametrize("stride", [1, 4])
 def test_n_step_collapse_equals_jax(stride):
     rng = np.random.default_rng(stride)

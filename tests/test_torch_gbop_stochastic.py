@@ -165,6 +165,27 @@ def test_kl_bound_torch_matches_jax_on_negative_sums(lower):
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("name", ["garnet_width2", "sailing_width1"])
+def test_visited_bounds_equal_a_solve_of_their_final_statistics(name):
+    """Each step solves both bounds of the entry it visits
+    (``kl_bounds_pair_``): after a plan, every visited entry's ``sa_mu_ucb`` /
+    ``sa_mu_lcb`` equal, bit for bit, a solve of its final sum and count at
+    the reward threshold, and unvisited entries keep 1 / 0."""
+    (_, _, states_j), (env_t, params_t, state_cls), plan, _ = CASES[name]()
+    states_t = from_numpy(state_cls, states_j, device="cpu")
+    _, graph = torch_plan_batch(env_t, params_t, states_t, env_t.observe(params_t, states_t),
+                                torch.Generator().manual_seed(2), device="cpu", **plan)
+    visited = graph.sa_count > 0
+    threshold = torch.tensor(np.float32(plan["reward_threshold_coeff"])
+                             * np.log(np.float32(plan["episodes"])))
+    for field, lower in (("sa_mu_ucb", False), ("sa_mu_lcb", True)):
+        want = kl_bound_torch(graph.sa_cum_reward[visited], graph.sa_count[visited].float(),
+                              threshold, lower=lower, iters=NEWTON_MAX_ITERATIONS)
+        assert torch.equal(getattr(graph, field)[visited], want), field
+    assert (graph.sa_mu_ucb[~visited] == 1).all() and (graph.sa_mu_lcb[~visited] == 0).all()
+    assert np.ptp(graph.sa_mu_ucb[visited].numpy()) > 0.05  # the solve did real work
+
+
 def test_agent_prefers_the_rewarding_action():
     config = {"budget": 100, "gamma": 0.8, "max_next_states_count": 2}
     env = torch_mdp.make(dict(TWO_ARM), device="cpu")

@@ -25,6 +25,8 @@ from rl_agents_torch.agents.tree_search import mdp_gape as tg
 from rl_agents_torch.agents.tree_search.batch import mdp_gape_plan_batch as torch_gape_batch
 from rl_agents_torch.convert import from_numpy, tree_to_numpy
 from rl_agents_torch.envs import finite_mdp as torch_mdp
+from rl_agents_torch.ops.kl_bound import kl_bound_torch
+from rl_agents_torch.utils.math import NEWTON_MAX_ITERATIONS
 from rl_agents_tpu.agents.tree_search.mdp_gape import MDPGapEAgent as JaxMDPGapEAgent
 from rl_agents_tpu.agents.tree_search.mdp_gape import mdp_gape_plan as jax_gape_plan
 from rl_agents_tpu.envs import finite_mdp as jax_mdp
@@ -208,6 +210,30 @@ def test_stochastic_garnet_plans_match_with_jax_draws():
     np.testing.assert_array_equal(used_t.numpy(), np.asarray(used_j))
     _assert_trees_match(tree_t, tree_j)
     assert (np.asarray(tree_j.c_n_children).max(axis=1) == 2).all()  # both next states were seen
+
+
+def test_visited_bounds_equal_a_solve_of_their_final_statistics():
+    """The bounds of a node are solved once per episode, after the descent
+    (``kl_bounds_pair_`` over the path): after a plan, every visited node's
+    ``d_mu_ucb`` / ``d_mu_lcb`` equal, bit for bit, a solve of its final
+    ``d_cum_reward`` / ``d_count`` at ``reward_threshold`` of that count, and
+    unvisited nodes keep 1 / 0. That holds only while the deferral is exact."""
+    case = _garnet_case(2, dict(GARNET_PLAN, confidence=0.5))
+    _, (env_t, params_t, states_t), plan = case
+    _, used, tree = torch_gape_batch(env_t, params_t, states_t, torch.Generator().manual_seed(3),
+                                     device="cpu", **plan)
+    assert (used == plan["episodes"] + 1).all()
+    visited = tree.d_count > 0
+    visited[:, 0] = False  # the root holds no reward statistics
+    count = tree.d_count[visited]
+    threshold = tg.reward_threshold(count, plan["horizon"], plan["num_actions"],
+                                    plan["confidence"])
+    for field, lower in (("d_mu_ucb", False), ("d_mu_lcb", True)):
+        want = kl_bound_torch(tree.d_cum_reward[visited], count.float(), threshold, lower=lower,
+                              iters=NEWTON_MAX_ITERATIONS)
+        assert torch.equal(getattr(tree, field)[visited], want), field
+    assert (tree.d_mu_ucb[~visited] == 1).all() and (tree.d_mu_lcb[~visited] == 0).all()
+    assert int(count.max()) > 1 and np.ptp(tree.d_mu_ucb[visited].numpy()) > 0.05
 
 
 def test_stochastic_garnet_root_action_distribution():

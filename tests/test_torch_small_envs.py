@@ -195,8 +195,8 @@ def _gape_draws(keys, episodes, horizon, num_actions):
 
 def test_mdp_gape_on_the_stochastic_grid_matches_jax_draws():
     """``DummyEnv/agents/mdp-gape.json``'s planner on ``gridenv_stoch.json``
-    (cut to 10 episodes x horizon 4): the dense ``kl_bound`` solves its
-    bounds (plain version on the CPU), the grid drops actions from the
+    (cut to 10 episodes x horizon 4): the paired ``kl_bounds_pair_`` solves
+    its bounds (plain version on the CPU), the grid drops actions from the
     replayed draws."""
     config = json.loads((CONFIGS / "DummyEnv" / "gridenv_stoch.json").read_text())
     env_j, env_t = jax_grid.make_grid(config), torch_grid.make_grid(config, device="cpu")
