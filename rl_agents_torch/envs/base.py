@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from rl_agents_torch.trainer.profiling import counters, span
 from rl_agents_torch.utils.device import resolve_device
@@ -135,6 +136,99 @@ class EnvSpec:
 def params_to(params, device: torch.device):
     """Move every tensor field of a params/state NamedTuple to ``device``."""
     return type(params)(*(torch.as_tensor(v).to(device) for v in params))
+
+
+class _Graphed(NamedTuple):
+    graph: Any        # the torch.cuda.CUDAGraph
+    in_groups: list   # (static input buffers, input positions), one pair a dtype
+    outputs: list     # the static outputs, each once, contiguous
+    out_groups: list  # output positions, one list a dtype
+    leaves: list      # each output leaf's position in ``outputs``
+    spec: Any         # the output's tree structure
+
+
+class TransitionGraphs:
+    """One CUDA graph of an env instance's transition per input signature.
+
+    ``graphs(fn, params, state, action)`` returns ``fn(params, state,
+    action)``. ``fn`` must draw nothing, read nothing back and copy nothing
+    from the host, so that a graph holds all that it does. A signature is
+    the device and the shape and dtype of every input tensor (a pointer or a
+    stride never); on the card its first call runs eagerly, its second
+    captures the graph and replays it, and later calls replay it. Inputs are
+    copied into the graph's buffers and outputs out of its own, one grouped
+    copy a dtype each way, so a replay never overwrites what an earlier call
+    returned. ``fn`` runs eagerly instead on the CPU, inside a capture that
+    someone else is making, where grad would flow into an input, and for
+    every signature after the first ``limit``. The counters
+    ``env.transition_graph.{replays,captures,eager}`` count the calls."""
+
+    def __init__(self, limit: int = 8):
+        self.limit = limit
+        self.seen = set()   # signatures called, graphed or not
+        self.graphs = {}    # signature -> _Graphed
+
+    def __call__(self, fn, params, state, action):
+        device = state[0].device
+        flat = (*params, *state, action)
+        if (device.type != "cuda" or torch.cuda.is_current_stream_capturing()
+                or (torch.is_grad_enabled() and any(t.requires_grad for t in flat))):
+            counters["env.transition_graph.eager"] += 1
+            return fn(params, state, action)
+        key = (device, tuple((t.shape, t.dtype) for t in flat))
+        graphed = self.graphs.get(key)
+        if graphed is None:
+            if key not in self.seen:
+                if len(self.seen) < self.limit:
+                    self.seen.add(key)
+                counters["env.transition_graph.eager"] += 1
+                return fn(params, state, action)
+            graphed = self.graphs[key] = _capture(fn, params, state, flat, device)
+            counters["env.transition_graph.captures"] += 1
+        else:
+            for buffers, positions in graphed.in_groups:
+                torch._foreach_copy_(buffers, [flat[i] for i in positions])
+            counters["env.transition_graph.replays"] += 1
+        graphed.graph.replay()
+        fresh = [torch.empty_like(t) for t in graphed.outputs]
+        for positions in graphed.out_groups:
+            torch._foreach_copy_([fresh[i] for i in positions],
+                                 [graphed.outputs[i] for i in positions])
+        return tree_unflatten([fresh[i] for i in graphed.leaves], graphed.spec)
+
+
+def _by_dtype(tensors) -> list:
+    """Positions of ``tensors`` grouped by dtype, in order of first appearance."""
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return list(groups.values())
+
+
+def _capture(fn, params, state, flat, device) -> _Graphed:
+    """Capture ``fn`` on static copies of its inputs, ``flat`` being the
+    params' fields, the state's and the action; the graph has not run when
+    this returns, but its inputs are in place."""
+    inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in flat]
+    in_groups = [([inputs[i] for i in positions], positions) for positions in _by_dtype(flat)]
+    for buffers, positions in in_groups:
+        torch._foreach_copy_(buffers, [flat[i] for i in positions])
+    n, m = len(params), len(state)
+    static = type(params)(*inputs[:n]), type(state)(*inputs[n:n + m]), inputs[-1]
+    graph = torch.cuda.CUDAGraph()
+    # the capture synchronises the device on entering: no transfer, and
+    # none that CUDA's sync debug mode reports, so not in ``host.syncs``
+    with torch.cuda.device(device):
+        with torch.cuda.graph(graph):
+            out = fn(*static)
+            leaves, spec = tree_flatten(out)
+            outputs, position = [], {}
+            for leaf in leaves:  # one output under several names is copied out once
+                if id(leaf) not in position:
+                    position[id(leaf)] = len(outputs)
+                    outputs.append(leaf.contiguous())  # a strided view: one copy
+    return _Graphed(graph, in_groups, outputs, _by_dtype(outputs),
+                    [position[id(leaf)] for leaf in leaves], spec)
 
 
 class FunctionalEnv:

@@ -34,8 +34,7 @@ import numpy as np
 import torch
 
 from rl_agents_torch.envs.base import (Box, Discrete, EnvHandle, EnvSpec, FunctionalEnv,
-                                       StepOut, TupleSpace)
-from rl_agents_torch.trainer.profiling import counters
+                                       StepOut, TransitionGraphs, TupleSpace)
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import fma, fnma, recip
 
@@ -46,6 +45,7 @@ LANE_WIDTH = 4.0
 VEHICLE_LENGTH = 5.0
 MAX_SPEED = 40.0
 MIN_SPEED = 0.0
+TRAFFIC_SPEED = 25.0  # the traffic's IDM target speed
 _TWO_PI = 2 * math.pi
 
 
@@ -122,6 +122,14 @@ def _pick(values, index):
     return picked.reshape(index.shape)
 
 
+def _fma_scalar(a, b: float, c):
+    """``fma(a, b, c)`` with ``b`` a float32 constant of the program held as
+    a Python float (``c`` a tensor or such a constant), so that nothing is
+    copied to the card: the float64 product is exact and the sum rounds
+    once, then to float32, as ``fma`` rounds them."""
+    return (a.double() * b + c).to(torch.float32)
+
+
 def _col(values, k: int, ndim: int):
     """Column ``k`` of a vector param field, shaped as ``_row``."""
     values = _vec(values)[:, k]
@@ -178,6 +186,7 @@ class HighwayEnv(FunctionalEnv):
         self.lidar_cells = lidar_cells
         self.lidar_range = lidar_range
         self.spec = EnvSpec("highway", max_episode_steps)
+        self._graphs = TransitionGraphs()
 
     @property
     def action_space(self):
@@ -287,13 +296,14 @@ class HighwayEnv(FunctionalEnv):
     @staticmethod
     def _idm_terms(params, target_speed) -> _IDMTerms:
         """The IDM's per-model terms, taken once per transition and shaped
-        for ``[B, V]`` operands. The target speed is a constant of the JAX
-        package's program, so its division by it is a multiplication by the
-        reciprocal."""
+        for ``[B, V]`` operands. The target speed (a Python float or a
+        tensor) is a constant of the JAX package's program, so its division
+        by it is a multiplication by the float32 reciprocal."""
         a, b = _row(params.idm_a, 2), _row(params.idm_b, 2)
+        inv_v0 = recip(max(target_speed, 1.0)) if isinstance(target_speed, float) \
+            else 1.0 / torch.clamp(target_speed, min=1.0)
         return _IDMTerms(s0=_row(params.idm_s0, 2), t0=_row(params.idm_t0, 2), a=a, neg_b=-b,
-                         denominator=2 * torch.sqrt(a * b),
-                         inv_v0=1.0 / torch.clamp(target_speed, min=1.0),
+                         denominator=2 * torch.sqrt(a * b), inv_v0=inv_v0,
                          one=torch.ones((), device=a.device))
 
     @staticmethod
@@ -411,8 +421,16 @@ class HighwayEnv(FunctionalEnv):
         """Dynamics without the (sorted, normalized) observation: the
         open-loop planning hot path. ``action`` is ``[B]`` meta-actions,
         ``[B, N]`` with N egos, or ``[B, 2]`` continuous commands. The
-        dynamics draw nothing: ``generator`` and ``noise`` are ignored."""
+        dynamics draw nothing: ``generator`` and ``noise`` are ignored. On
+        the card a CUDA graph of ``_transition_eager`` per input signature
+        replays its few hundred small kernels in one launch
+        (``envs/base.py::TransitionGraphs``); the results are the same bits."""
         del generator, noise
+        action = torch.as_tensor(action, device=state.x.device)
+        return self._graphs(self._transition_eager, params, state, action)
+
+    def _transition_eager(self, params: HighwayParams, state: HighwayState, action) -> StepOut:
+        """The transition's operations, launched one by one."""
         V, L = self.vehicles, self.lanes
         N = self.controlled_vehicles
         B = state.x.shape[0]
@@ -423,8 +441,6 @@ class HighwayEnv(FunctionalEnv):
         idm_a, idm_b = _row(params.idm_a, 2), _row(params.idm_b, 2)
         dt2 = _row(params.dt, 2)
         lane_rate_ego = None
-        traffic_speed = torch.tensor(25.0, device=device)
-        counters["host.syncs"] += 1  # a constant's copy to the card waits for its stream
 
         if self.action_type == "continuous":
             # ContinuousAction (highway-env action.py:117-160): [acceleration,
@@ -437,15 +453,15 @@ class HighwayEnv(FunctionalEnv):
             # ``lo + (u + 1) * 0.5 * (hi - lo)``: XLA folds the two constant
             # factors into one and fuses the multiply-add
             def scaled(u, lo, hi):
-                factor = torch.tensor(np.float32(0.5) * np.float32(hi - lo), device=device)
-                return fma(u + 1.0, factor, torch.tensor(np.float32(lo), device=device))
+                return _fma_scalar(u + 1.0, float(np.float32(0.5) * np.float32(hi - lo)),
+                                   float(np.float32(lo)))
 
             ego_acc = scaled(act[:, 0], a_lo, a_hi)[:, None]
             steering = scaled(act[:, 1], s_lo, s_hi)
             lane_rate_ego = state.speed[:, 0] * torch.sin(steering) * recip(LANE_WIDTH)
             # traffic keeps MOBIL/IDM; the ego's target lane tracks its position
             target_lane, idm_acc = self._mobil_target_lanes(params, state, state.target_lane,
-                                                            traffic_speed)
+                                                            TRAFFIC_SPEED)
         else:
             acts = torch.as_tensor(action, dtype=torch.int64, device=device)
             acts = acts.reshape(B) if N == 1 else acts.reshape(B, N)
@@ -464,7 +480,7 @@ class HighwayEnv(FunctionalEnv):
             # traffic MOBIL lane changes (egos excluded inside); its current-lane
             # leader pass gives the IDM acceleration below
             target_lane, idm_acc = self._mobil_target_lanes(params, state, target_lane,
-                                                            traffic_speed)
+                                                            TRAFFIC_SPEED)
             # egos track their target speed directly (collision avoidance is
             # the planner's job, as in highway-env's ControlledVehicle)
             if N == 1:
@@ -533,7 +549,7 @@ class HighwayEnv(FunctionalEnv):
         if N == 1:
             centered = raw - cr1
         else:  # the mean's ``sum / N`` and ``- collision_reward`` fuse into one FMA
-            centered = fma(raw, torch.tensor(recip(N), device=device), -cr1)
+            centered = _fma_scalar(raw, recip(N), -cr1)
         reward = centered / (hs1 + rl1 - cr1)
         reward = torch.where(frozen, 0.0, torch.clamp(reward, 0.0, 1.0))
 

@@ -111,22 +111,23 @@ def _syncs_of(run):
 def test_host_syncs_count_the_blocking_reads_of_an_act_a_step_and_a_plan():
     handle, agent = _opd_agent("cpu")
     obs = handle.obs[0].numpy()
-    # an act: the plan's four constants, one transition and one leaf write an
-    # expansion, one read a consolidation sweep, and the plan's two read-backs
+    # an act: the plan's four constants, one leaf write an expansion, one read
+    # a consolidation sweep, and the plan's two read-backs; the transition
+    # copies nothing to the card
     syncs, sweeps = _syncs_of(lambda: agent.act(obs))
-    assert sweeps > 0 and syncs == 4 + 2 * EXPANSIONS + sweeps + 2
-    # a step: the action's copy, the transition's constant, the observation,
-    # three infos, the reward, terminated and truncated
+    assert sweeps > 0 and syncs == 4 + EXPANSIONS + sweeps + 2
+    # a step: the action's copy, the observation, three infos, the reward,
+    # terminated and truncated
     syncs, _ = _syncs_of(lambda: handle.step(0))
-    assert syncs == 1 + 1 + 1 + 3 + 3
-    # a KL-OLOP batch plan: three at its start and one a transition
+    assert syncs == 1 + 1 + 3 + 3
+    # a KL-OLOP batch plan: three at its start, none in its transitions
     states = tuple(x.expand(4, *x.shape[1:]) for x in handle.state)
     states = type(handle.state)(*states)
     syncs, _ = _syncs_of(lambda: olop_plan_batch(
         handle.functional, handle.params, states, torch.Generator().manual_seed(0),
         num_actions=5, episodes=6, horizon=3, gamma=0.7, threshold_coeff=2.0,
         continuation_uniform=True, device="cpu"))
-    assert syncs == 3 + 6 * 3
+    assert syncs == 3
 
 
 def _finite_mdp(models: int):
