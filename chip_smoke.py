@@ -20,7 +20,11 @@ non-zero without its final line:
    same inputs; the dense form ``kl_bound`` on those inputs, at n = 4096,
    1,000,003 and 2^24 on OLOP-like statistics and on edge cases; and the
    indexed form ``kl_bound_indexed_`` on a ``[4096, 369]`` arena at the
-   planner's path of 8 x 4096 nodes;
+   planner's path of 8 x 4096 nodes; and the highway transition kernel
+   (``ops/highway_transition.py``) against ``_transition_eager`` run eagerly
+   on the card, every output bit for bit, at 4096 and 20,480 rows of 15
+   vehicles, timed beside the eager body and its graph replay with the
+   bound of ``perfbench/counts/highway.py``;
 4. the OLOP batch path at full width: ``olop_plan_batch`` on CartPole, 4096
    trees, 23 episodes x horizon 8, gamma 0.95, one ``kl_bound_indexed_``
    launch per episode, checked against the same first 64 trees planned on the
@@ -69,11 +73,14 @@ non-zero without its final line:
     trees, 72 x 6, one ``kl_bound_indexed_`` launch per episode) and DROP on
     ``merge-v0`` (4096 trees x 2 models, 40 expansions); each timed, profiled
     (MCTS over 3 episodes of its 23) and its first 64 trees held against the
-    CPU plan under the same noise;
+    CPU plan under the same noise; every transition of the timed plan must
+    be one launch of the highway transition kernel (none on the graph
+    path);
 15. the highway agent paths, 3 steps each: ``DeterministicPlannerAgent.json``,
     ``MCTSAgent.json``, ``OLOPAgent/kl-olop.json`` and
     ``IntervalRobustPlannerAgent/baseline.json`` on ``HighwayEnv/env.json``,
-    and ``DiscreteRobustPlannerAgent.json`` on ``MergeEnv/env.json``;
+    and ``DiscreteRobustPlannerAgent.json`` on ``MergeEnv/env.json``; every
+    transition one launch of the highway transition kernel, as in phase 14;
 16. the model zoo: the EgoAttentionNetwork at ``__graft_entry__.entry()``'s
     widths on the card against the same weights on the CPU (within 1e-5,
     its attention matrix too), at batch 8 and at the JAX bench's serving
@@ -216,15 +223,18 @@ non-zero without its final line:
     card's cloud against the CPU's frontier of the same cloud. This host has
     neither matplotlib nor pygame, so the drawing itself is tested on the
     CPU;
-43. a ``kernels`` JSON line (the three KL forms; the dense form is on no
-    main path since the paired form took its two callers, and its
-    launches there are asserted 0), then ``{"ok": true, "device": {...}}``
-    as the last line. The DQN paths, the paths of phases 19-31, the robust control
-    of phase 35, the learner, serving and checkpoints of phases 36-39 and
-    phases 40 and 41 launch no hand kernel: their products, softmax, hull,
-    interval predictor, LMI descent, collectives and env steps are tensor
-    functions and NCCL calls, as the JAX package computes them outside any
-    Pallas kernel.
+43. a ``kernels`` JSON line (the three KL forms and the highway transition;
+    the dense form is on no main path since the paired form took its two
+    callers, and its launches there are asserted 0), then ``{"ok": true,
+    "device": {...}}`` as the last line. The DQN paths, the paths of phases
+    19-31, the robust control of phase 35, the learner, serving and
+    checkpoints of phases 36-39 and phases 40 and 41 launch no KL kernel:
+    their products, softmax, hull, interval predictor, LMI descent and
+    collectives are tensor functions and NCCL calls, as the JAX package
+    computes them outside any Pallas kernel. Those that step a highway
+    scene on the card launch the highway transition kernel, which XLA fuses
+    in the JAX package; the ``kernels`` line lists its launches path by
+    path.
 
 Every path is driven with every kernel launch counter set to 0 just before
 and read just after.
@@ -404,28 +414,59 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+# the launch counter of each hand-written kernel's wrapper
+LAUNCH_COUNTERS = {"kl_bound": "kl_bound.launches",
+                   "kl_bound_indexed_": "kl_bound_indexed_.launches",
+                   "kl_bounds_pair_": "kl_bounds_pair_.launches",
+                   "highway_transition": "env.transition_kernel.launches"}
+# the highway transitions that took the graph path (envs/base.py::TransitionGraphs)
+GRAPH_COUNTERS = ("env.transition_graph.replays", "env.transition_graph.captures",
+                  "env.transition_graph.eager")
+
+
 def reset_launches():
     from rl_agents_torch.trainer.profiling import counters
 
-    for name in NO_LAUNCHES:
-        counters[f"{name}.launches"] = 0
+    for counter in (*LAUNCH_COUNTERS.values(), *GRAPH_COUNTERS):
+        counters[counter] = 0
 
 
 def read_launches() -> dict:
     from rl_agents_torch.trainer.profiling import counters
 
-    return {name: counters[f"{name}.launches"] for name in NO_LAUNCHES}
+    return {name: counters[counter] for name, counter in LAUNCH_COUNTERS.items()}
 
 
-NO_LAUNCHES = {"kl_bound": 0, "kl_bound_indexed_": 0, "kl_bounds_pair_": 0}
+NO_LAUNCHES = {name: 0 for name in LAUNCH_COUNTERS}
 
 
 def expect_launches(path: str, got: dict, kl_bound: int, kl_bound_indexed_: int,
-                    kl_bounds_pair_: int = 0):
+                    kl_bounds_pair_: int = 0, highway_transition: int | None = None):
+    """The launches of each KL form must be the given numbers; those of the
+    highway transition kernel too where ``highway_transition`` is given
+    (where it is None the count is listed in the ``kernels`` line, and the
+    highway paths hold it with ``expect_kernel_took_every_transition``)."""
     want = {"kl_bound": kl_bound, "kl_bound_indexed_": kl_bound_indexed_,
-            "kl_bounds_pair_": kl_bounds_pair_}
+            "kl_bounds_pair_": kl_bounds_pair_,
+            "highway_transition": (got["highway_transition"] if highway_transition is None
+                                   else highway_transition)}
     if got != want:
         raise AssertionError(f"{path}: launches {got}, expected {want}")
+
+
+def expect_kernel_took_every_transition(path: str, launches: dict):
+    """Every highway transition since the counters were zeroed ran on the
+    card as one launch of the hand-written kernel: at least one launch, and
+    no call on the graph path (``GRAPH_COUNTERS``, which count every other
+    highway transition, the CPU's included)."""
+    from rl_agents_torch.trainer.profiling import counters
+
+    graph = {counter: counters[counter] for counter in GRAPH_COUNTERS}
+    print(f"  {path}: {launches['highway_transition']} highway transition kernel launches, "
+          f"graph path {graph}")
+    if launches["highway_transition"] < 1 or any(graph.values()):
+        raise AssertionError(f"{path}: not every highway transition launched the kernel: "
+                             f"{launches['highway_transition']} launches, graph path {graph}")
 
 
 def timed_plans(plan, count: int = PLANS) -> list:
@@ -913,6 +954,86 @@ def check_kl_bound_indexed(dev) -> dict:
             "bound_by": bound_by, "library_ms": None, "call_ms": call_ms, "on_main_path": True}
 
 
+def same_step(name: str, got, want):
+    """Two ``StepOut`` of the same transition equal bit for bit, leaf by leaf,
+    with the same dtypes and shapes."""
+    from torch.utils._pytree import tree_flatten
+
+    got_leaves, got_spec = tree_flatten(got)
+    want_leaves, want_spec = tree_flatten(want)
+    if got_spec != want_spec:
+        raise AssertionError(f"{name}: the outputs' structure differs: {got_spec} != {want_spec}")
+    for k, (a, b) in enumerate(zip(got_leaves, want_leaves)):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{name}: leaf {k} differs ({a.dtype} {tuple(a.shape)} against "
+                                 f"{b.dtype} {tuple(b.shape)})")
+
+
+def check_highway_transition(dev) -> dict:
+    """The highway transition kernel (``ops/highway_transition.py``) through
+    ``HighwayEnv.transition`` against ``_transition_eager`` run eagerly on
+    the card, every output bit for bit, at the main path's shapes: 4096 rows
+    (an MCTS or KL-OLOP step over 4096 trees) and 20,480 (OPD's 4096 x 5
+    children) of ``HighwayEnv/env.json``'s 15 vehicles, on states stepped 0
+    to 4 times from ``reset``. Timed at both: the kernel on the device (a
+    captured graph of launches), an eager call, the host's time a call, the
+    eager body (its ~314 library kernels launched one by one) and the graph
+    replay of it that the kernel replaced; the bound is
+    ``perfbench/counts/highway.py``'s."""
+    from perfbench.counts.highway import transition_bytes, transition_ops
+    from rl_agents_torch.factory import load_environment
+    from rl_agents_torch.trainer.profiling import counters
+
+    handle = load_environment(CONFIGS / "HighwayEnv" / "env.json", device=dev)
+    env, params = handle.functional, handle.params
+    vehicles = env.vehicles
+    gen = torch.Generator(device=dev).manual_seed(11)
+    result = {"name": "highway_transition", "route": "cuda",
+              "source": "rl_agents_torch/csrc/highway_transition.cu",
+              "replaces": "the eager body envs/highway.py::HighwayEnv._transition_eager "
+                          "(XLA fuses it in the JAX package: no Pallas kernel)",
+              "launches": None, "max_abs_err": 0.0, "on_main_path": True}
+    for rows in (TREES, 5 * TREES):
+        state, _ = env.reset(params, gen, rows)
+        for steps in range(5):
+            action = torch.randint(0, env.action_space.n, (rows,), generator=gen, device=dev)
+            before = counters["env.transition_kernel.launches"]
+            got = env.transition(params, state, action)
+            if counters["env.transition_kernel.launches"] != before + 1:
+                raise AssertionError("HighwayEnv.transition did not launch the kernel")
+            same_step(f"highway_transition rows={rows} after {steps} steps", got,
+                      env._transition_eager(params, state, action))
+            state = got.state
+        print(f"highway_transition rows={rows} vehicles={vehicles}: equal to the eager body bit "
+              f"for bit in every output, after 0 to 4 steps")
+        run_kernel = lambda: env.transition(params, state, action)
+        run_plain = lambda: env._transition_eager(params, state, action)
+        ms, call_ms, plain_ms = time_kernel(run_kernel, run_plain, 20, 20, 200, 20)
+        for _ in range(3):  # a signature's first graph call is eager, its second captures
+            env._graphs(env._transition_eager, params, state, action)
+        graph_ms = cuda_ms(lambda: env._graphs(env._transition_eager, params, state, action), 20)
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for _ in range(200):
+            run_kernel()
+        host_us = (time.perf_counter() - started) / 200 * 1e6
+        torch.cuda.synchronize()
+        ops_s = transition_ops(rows, vehicles) / PEAK_F32_OPS_PER_S
+        bytes_s = transition_bytes(rows, vehicles) / PEAK_BYTES_PER_S
+        bound_ms, bound_by = max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+        print(f"highway_transition rows={rows}: kernel {ms!r} ms on the device, {call_ms!r} ms per "
+              f"eager call, {host_us!r} us of host time a call; eager body {plain_ms!r} ms, its "
+              f"graph replay {graph_ms!r} ms; bound {bound_ms!r} ms by {bound_by}, "
+              f"{bound_ms / ms!r} of the bound")
+        times = dict(ms=ms, call_ms=call_ms, host_us=host_us, plain_ms=plain_ms,
+                     library_ms=plain_ms, graph_ms=graph_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if rows == TREES:
+            result.update(times)
+        else:
+            result.update({f"{key}_rows{rows}": value for key, value in times.items()})
+    return result
+
+
 def profile_plan(plan, host_events: bool = True) -> dict:
     """Device busy share of one plan and its costliest device kernels, from
     torch.profiler's CUDA activity. ``host_events=False`` leaves the host's
@@ -1374,11 +1495,12 @@ def check_opd_batch_path(dev) -> dict:
 
 def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan: int,
                      kl_bound_indexed_per_plan: int, check=None,
-                     kl_bounds_pair_per_plan: int = 0) -> dict:
+                     kl_bounds_pair_per_plan: int = 0, highway: bool = False) -> dict:
     """One episode through ``load_environment`` / ``load_agent`` /
     ``Evaluation.test`` on the card; returns the launches of each KL wrapper,
-    which must be the given numbers per planning step. ``check(env, agent)``
-    runs before the episode."""
+    which must be the given numbers per planning step, and of the highway
+    transition kernel, which on a ``highway`` path must have run every
+    transition. ``check(env, agent)`` runs before the episode."""
     from rl_agents_torch.factory import load_agent, load_environment
     from rl_agents_torch.trainer.evaluation import Evaluation
 
@@ -1410,7 +1532,9 @@ def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan
         raise AssertionError(f"{name} agent path: invalid episode {episode}")
     expect_launches(f"{name} agent path", launches, kl_bound_per_plan * episode["length"],
                     kl_bound_indexed_per_plan * episode["length"],
-                    kl_bounds_pair_per_plan * episode["length"])
+                    kl_bounds_pair_per_plan * episode["length"], None if highway else 0)
+    if highway:
+        expect_kernel_took_every_transition(f"{name} agent path", launches)
     return launches
 
 
@@ -1488,6 +1612,7 @@ def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, clos
     launches = read_launches()
     expect_launches(f"{name}, {HW_PLANS} plans", launches, 0, HW_PLANS * kl_bound_indexed,
                     HW_PLANS * kl_bounds_pair)
+    expect_kernel_took_every_transition(f"{name}, {HW_PLANS} plans", launches)
     ms = report_plans(f"{name} B={trees}", times, work, unit)
     print(f"  {launches} launches in {HW_PLANS} plans; {sweep_line(trees)}")
     noise = make_noise(trees)
@@ -1665,9 +1790,10 @@ def check_highway_agent_paths(dev) -> dict:
     paths = {}
     paths["highway_opd_agent"] = check_agent_path(
         dev, "DeterministicPlannerAgent on highway", highway,
-        agents / "DeterministicPlannerAgent.json", 0, 0)
+        agents / "DeterministicPlannerAgent.json", 0, 0, highway=True)
     paths["highway_mcts_agent"] = check_agent_path(dev, "MCTSAgent on highway", highway,
-                                                   agents / "MCTSAgent.json", 0, 0)
+                                                   agents / "MCTSAgent.json", 0, 0,
+                                                   highway=True)
 
     def simplified(env, agent):
         smaller = preprocess_env(env, agent.config["env_preprocessors"])
@@ -1680,13 +1806,14 @@ def check_highway_agent_paths(dev) -> dict:
 
     paths["highway_kl_olop_agent"] = check_agent_path(
         dev, "OLOPAgent (kl-olop.json) on highway", highway, agents / "OLOPAgent" / "kl-olop.json",
-        0, HW_OLOP["episodes"], check=simplified)
+        0, HW_OLOP["episodes"], check=simplified, highway=True)
     paths["highway_irp_agent"] = check_agent_path(
         dev, "IntervalRobustPlannerAgent on highway", highway,
-        agents / "IntervalRobustPlannerAgent" / "baseline.json", 0, 0)
+        agents / "IntervalRobustPlannerAgent" / "baseline.json", 0, 0, highway=True)
     paths["merge_drop_agent"] = check_agent_path(
         dev, "DiscreteRobustPlannerAgent on merge-v0", merge,
-        CONFIGS / "MergeEnv" / "agents" / "DiscreteRobustPlannerAgent.json", 0, 0)
+        CONFIGS / "MergeEnv" / "agents" / "DiscreteRobustPlannerAgent.json", 0, 0,
+        highway=True)
     return paths
 
 
@@ -4028,6 +4155,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
     sys.path.insert(0, str(REPO))
     from rl_agents_torch.agents.tree_search.common import allocation
+    from rl_agents_torch.ops import highway_transition as transition_module
     from rl_agents_torch.ops import kl_bound as kl_module
 
     phase("1. card")
@@ -4038,16 +4166,18 @@ def main():
     dev = torch.device("cuda", 0)
 
     phase("2. build")
-    started = time.time()
-    library = kl_module.build()
-    print(f"kl_bound built in {time.time() - started!r} s: {library.relative_to(REPO)}")
-    log = library.with_suffix(".so.log")
-    if log.is_file():
-        print(log.read_text().strip())
+    for name, module in (("kl_bound", kl_module), ("highway_transition", transition_module)):
+        started = time.time()
+        library = module.build()
+        print(f"{name} built in {time.time() - started!r} s: {library.relative_to(REPO)}")
+        log = library.with_suffix(".so.log")
+        if log.is_file():
+            print(log.read_text().strip())
 
     phase("3. kernels against their plain versions")
     dense = check_kl_bound(dev)
-    kernels = [dense, check_kl_bound_indexed(dev), check_kl_bounds_pair(dev, dense)]
+    kernels = [dense, check_kl_bound_indexed(dev), check_kl_bounds_pair(dev, dense),
+               check_highway_transition(dev)]
 
     cartpole = json.loads((CONFIGS / "CartPoleEnv" / "env.json").read_text())
     cartpole["max_episode_steps"] = AGENT_MAX_STEPS

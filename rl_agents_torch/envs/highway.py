@@ -35,6 +35,7 @@ import torch
 
 from rl_agents_torch.envs.base import (Box, Discrete, EnvHandle, EnvSpec, FunctionalEnv,
                                        StepOut, TransitionGraphs, TupleSpace)
+from rl_agents_torch.ops import highway_transition as transition_kernel
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import fma, fnma, recip
 
@@ -46,6 +47,7 @@ VEHICLE_LENGTH = 5.0
 MAX_SPEED = 40.0
 MIN_SPEED = 0.0
 TRAFFIC_SPEED = 25.0  # the traffic's IDM target speed
+_INV_TRAFFIC_SPEED = recip(TRAFFIC_SPEED)  # _idm_terms' inv_v0 for the traffic
 _TWO_PI = 2 * math.pi
 
 
@@ -422,12 +424,43 @@ class HighwayEnv(FunctionalEnv):
         open-loop planning hot path. ``action`` is ``[B]`` meta-actions,
         ``[B, N]`` with N egos, or ``[B, 2]`` continuous commands. The
         dynamics draw nothing: ``generator`` and ``noise`` are ignored. On
-        the card a CUDA graph of ``_transition_eager`` per input signature
-        replays its few hundred small kernels in one launch
-        (``envs/base.py::TransitionGraphs``); the results are the same bits."""
+        the card, meta-actions of one ego run as one hand-written kernel
+        (``ops/highway_transition.py``), the same bits; the forms that
+        ``kernel_declines`` names (continuous actions, several egos, a
+        transition of a subclass's own, grad into an input, CPU tensors) go
+        to a CUDA graph of ``_transition_eager`` per input signature
+        (``envs/base.py::TransitionGraphs``), which runs it eagerly on the
+        CPU."""
         del generator, noise
         action = torch.as_tensor(action, device=state.x.device)
+        if self.kernel_declines(params, state, action) is None:
+            return transition_kernel.launch(params, state, action, self.lanes,
+                                            self.max_episode_steps, _INV_TRAFFIC_SPEED)
         return self._graphs(self._transition_eager, params, state, action)
+
+    def kernel_declines(self, params: HighwayParams, state: HighwayState, action):
+        """Which form of call ``transition`` hands to the graph path, or None
+        where it launches the kernel: the kernel computes ``HighwayEnv``'s own
+        body for meta-actions of one ego on the card. A call of that form
+        whose tensors the kernel cannot take (more than
+        ``MAX_VEHICLES`` vehicles, another dtype or shape, a params form it
+        does not read, tensors on several devices) is a wrong input and
+        raises ``ValueError``."""
+        if self.action_type != "meta":
+            return "continuous actions"
+        if self.controlled_vehicles != 1:
+            return "several egos"
+        if (type(self).transition is not HighwayEnv.transition
+                or type(self)._transition_eager is not HighwayEnv._transition_eager):
+            return "a transition of its own"
+        if transition_kernel.wants_grad(params, state, action):
+            return "grad into an input"
+        if not state.x.is_cuda:
+            return "CPU tensors"
+        reason = transition_kernel.declines(params, state, action, self.vehicles)
+        if reason is not None:
+            raise ValueError(f"the highway transition kernel cannot take this call: {reason}")
+        return None
 
     def _transition_eager(self, params: HighwayParams, state: HighwayState, action) -> StepOut:
         """The transition's operations, launched one by one."""

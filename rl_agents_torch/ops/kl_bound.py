@@ -34,14 +34,10 @@ library is built from the repository's source with ``nvcc`` at first use into
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from rl_agents_torch.ops import cuda_build
 from rl_agents_torch.trainer.profiling import counters
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import (
@@ -51,48 +47,15 @@ from rl_agents_torch.utils.math import (
     d_bernoulli_kullback_leibler_dq,
 )
 
-_PACKAGE = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE / "csrc" / "kl_bound.cu"
-BUILD_DIR = _PACKAGE / "_build"
-# no --use_fast_math: logf, division, inf and nan keep IEEE semantics;
-# --fmad=false: no contraction into FMA, each op rounds like the plain version
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = cuda_build.PACKAGE / "csrc" / "kl_bound.cu"
 
 _library = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.is_file():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the kl_bound kernel cannot be built "
-                       "(set CUDA_HOME or put nvcc on PATH)")
-
-
-def build() -> Path:
+def build():
     """Build the kernel's shared library if it is not built yet; return its
-    path. The compiler's output (``-Xptxas -v``: registers, spills) is kept
-    beside it as ``<library>.log``. A failed build raises with that output."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"kl_bound_{digest}.so"
-    if lib_path.is_file():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    lib_path.with_suffix(".so.log").write_text(log)
-    os.replace(tmp, lib_path)
-    return lib_path
+    path (``ops/cuda_build.py::build``)."""
+    return cuda_build.build(SOURCE, "kl_bound")
 
 
 def _load():

@@ -87,7 +87,8 @@ def test_the_slice_11_modules_are_checked():
 def test_the_port_has_every_module_of_the_jax_package():
     """The module lists differ only by design: no ``ops/onehot.py`` (direct
     indexing), ``ops/pallas_kl.py`` is ``ops/kl_bound.py``, and the port's
-    own additions."""
+    own additions (among them the highway transition's kernel, which XLA
+    fuses in the JAX package, and the build both kernels share)."""
     def modules(package):
         return {p.relative_to(REPO / package).as_posix()
                 for p in (REPO / package).rglob("*.py")}
@@ -96,7 +97,7 @@ def test_the_port_has_every_module_of_the_jax_package():
     assert jax_modules - port_modules == {"ops/onehot.py", "ops/pallas_kl.py"}
     assert port_modules - jax_modules == {
         "convert.py", "experiments.py", "utils/device.py", "utils/noise.py", "ops/kl_bound.py",
-        "scripts/__init__.py", "scripts/planners_evaluation.py",
+        "ops/highway_transition.py", "ops/cuda_build.py", "scripts/__init__.py", "scripts/planners_evaluation.py",
         "scripts/planners_robust_evaluation.py", "scripts/planners_visualization.py"}
 
 
@@ -134,6 +135,7 @@ def test_the_bridge_imports_gymnasium_only_when_a_bridge_is_made():
 
 
 def test_kl_bound_on_cpu_never_touches_the_build(monkeypatch):
+    from rl_agents_torch.ops import cuda_build
     from rl_agents_torch.ops import kl_bound as mod
     from rl_agents_torch.trainer.profiling import counters
 
@@ -142,7 +144,7 @@ def test_kl_bound_on_cpu_never_touches_the_build(monkeypatch):
 
     monkeypatch.setattr(mod, "build", forbidden)
     monkeypatch.setattr(mod, "_load", forbidden)
-    monkeypatch.setattr(mod.subprocess, "run", forbidden)
+    monkeypatch.setattr(cuda_build.subprocess, "run", forbidden)
     before = counters["kl_bound.launches"]
     out = mod.kl_bound(torch.tensor([0.5, 2.0]), torch.tensor([1.0, 4.0]),
                        torch.tensor(np.log(10.0), dtype=torch.float32), device="cpu")

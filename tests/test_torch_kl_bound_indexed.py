@@ -12,6 +12,7 @@ import torch
 from rl_agents_torch.agents.tree_search import olop as olop_module
 from rl_agents_torch.agents.tree_search.olop import olop_plan
 from rl_agents_torch.envs import finite_mdp as torch_mdp
+from rl_agents_torch.ops import cuda_build
 from rl_agents_torch.ops import kl_bound as kl_module
 from rl_agents_torch.ops.kl_bound import kl_bound_indexed_, kl_bound_torch
 from rl_agents_torch.trainer.profiling import counters
@@ -150,7 +151,7 @@ def test_indexed_on_cpu_never_touches_the_build(monkeypatch):
 
     monkeypatch.setattr(kl_module, "build", forbidden)
     monkeypatch.setattr(kl_module, "_load", forbidden)
-    monkeypatch.setattr(kl_module.subprocess, "run", forbidden)
+    monkeypatch.setattr(cuda_build.subprocess, "run", forbidden)
     before = counters.copy()
     total, count, nodes, thr = _arena()
     out = kl_module.kl_bound_indexed_(_out(total.shape), total, count, nodes, thr)

@@ -16,6 +16,7 @@ import torch
 from rl_agents_torch.agents.tree_search import graph_based_stochastic as gbop_module
 from rl_agents_torch.agents.tree_search import mdp_gape as gape_module
 from rl_agents_torch.envs import finite_mdp as torch_mdp
+from rl_agents_torch.ops import cuda_build
 from rl_agents_torch.ops import kl_bound as kl_module
 from rl_agents_torch.ops.kl_bound import kl_bound_torch, kl_bounds_pair_
 from rl_agents_torch.trainer.profiling import counters
@@ -257,7 +258,7 @@ def test_pair_on_cpu_never_touches_the_build(monkeypatch):
 
     monkeypatch.setattr(kl_module, "build", forbidden)
     monkeypatch.setattr(kl_module, "_load", forbidden)
-    monkeypatch.setattr(kl_module.subprocess, "run", forbidden)
+    monkeypatch.setattr(cuda_build.subprocess, "run", forbidden)
     before = counters["kl_bounds_pair_.launches"]
     total, count, at, table = _gape_arena(seed=10)
     ucb, _ = kl_module.kl_bounds_pair_(*_bounds(total.shape), total, count, at, table)

@@ -5,7 +5,11 @@ On the CPU every call runs the operations eagerly and counts as
 ``env.transition_graph.eager``. On a card (marker ``card``; the tests skip
 without one) each input signature's first call runs eagerly, its second
 captures a graph and later calls replay it; every output field of a graphed
-call equals the eager one bit for bit. Run them on the card with
+call equals the eager one bit for bit. On the card ``transition`` hands
+meta-actions of one ego to a hand-written kernel
+(``tests/test_torch_highway_kernel.py``), so the card tests drive an env's
+graphs directly (``_graphed``), on the forms that keep them and on that one.
+Run them on the card with
 ``python -m pytest tests/test_torch_transition_graphs.py -m card -s``."""
 import json
 import warnings
@@ -102,13 +106,18 @@ def _card():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _graphed(env, params, state, action):
+    """The graph path of ``transition``, whatever form the call has."""
+    return env._graphs(env._transition_eager, params, state, torch.as_tensor(action))
+
+
 def _graphed_against_eager(env, params, state, action):
     """Three calls with one signature (eager, capture, replay), each equal to
     the eager operations bit for bit; the counters read 1, 1, 1."""
     want = env._transition_eager(params, state, action)
     outs, calls = [], {k: 0 for k in KEYS}
     for _ in range(3):
-        out, delta = _counted(lambda: env.transition(params, state, action))
+        out, delta = _counted(lambda: _graphed(env, params, state, action))
         outs.append(out)
         calls = {k: calls[k] + delta[k] for k in KEYS}
     for out in outs:
@@ -158,7 +167,7 @@ def test_per_row_params_of_the_robust_fan_out_replay_the_eager_bits():
     _graphed_against_eager(env, rows, state, action)
     # the planner builds its rows afresh each plan: the same signature replays
     fresh = type(rows)(*(x.clone() for x in rows))
-    out, calls = _counted(lambda: env.transition(fresh, state, action))
+    out, calls = _counted(lambda: _graphed(env, fresh, state, action))
     _assert_same_bits(out, env._transition_eager(fresh, state, action))
     assert calls == {"replays": 1, "captures": 0, "eager": 0}
 
@@ -172,7 +181,7 @@ def test_a_replay_leaves_what_earlier_calls_returned():
     states = [_scenes(env, params, 256, seed=k) for k in range(3)]
     actions = [_actions(env, 256, gen) for _ in range(3)]
     wants = [env._transition_eager(params, s, a) for s, a in zip(states, actions)]
-    outs = [env.transition(params, s, a) for s, a in zip(states, actions)]
+    outs = [_graphed(env, params, s, a) for s, a in zip(states, actions)]
     # the first call ran eagerly, the second captured, the third replayed
     for out, want in zip(outs, wants):
         _assert_same_bits(out, want)
@@ -180,7 +189,7 @@ def test_a_replay_leaves_what_earlier_calls_returned():
     # a chain of replays, each from the last's output, as OLOP steps an episode
     state, chained = states[0], []
     for a in actions:
-        state = env.transition(params, state, a).state
+        state = _graphed(env, params, state, a).state
         chained.append(state)
     state = states[0]
     for a, got in zip(actions, chained):
@@ -208,7 +217,7 @@ def test_inside_another_capture_the_transition_runs_eagerly():
     outer = torch.cuda.CUDAGraph()
     before = counters.copy()
     with torch.cuda.graph(outer):
-        out = env.transition(params, static_state, static_action)
+        out = _graphed(env, params, static_state, static_action)
     delta = counters - before
     assert delta["env.transition_graph.eager"] == 1
     assert delta["env.transition_graph.captures"] == delta["env.transition_graph.replays"] == 0
@@ -237,19 +246,19 @@ def test_the_counters_and_the_limit_of_signatures():
     action = _actions(env, 64, gen)
     seen = []
     for _ in range(5):
-        _, calls = _counted(lambda: env.transition(params, state, action))
+        _, calls = _counted(lambda: _graphed(env, params, state, action))
         seen.append(tuple(calls[k] for k in KEYS))
     assert seen == [(0, 0, 1), (0, 1, 0), (1, 0, 0), (1, 0, 0), (1, 0, 0)]
 
     sizes = [1, 2, 3, 4, 6, 7, 8]  # with 64: eight signatures
     for rows in sizes:
         s = _scenes(env, params, rows)
-        env.transition(params, s, _actions(env, rows, gen))
+        _graphed(env, params, s, _actions(env, rows, gen))
     assert len(env._graphs.seen) == env._graphs.limit == 8
     ninth = _scenes(env, params, 9)
     ninth_action = _actions(env, 9, gen)
     for _ in range(3):
-        out, calls = _counted(lambda: env.transition(params, ninth, ninth_action))
+        out, calls = _counted(lambda: _graphed(env, params, ninth, ninth_action))
         assert calls == {"replays": 0, "captures": 0, "eager": 1}
         _assert_same_bits(out, env._transition_eager(params, ninth, ninth_action))
 
@@ -262,7 +271,7 @@ def test_the_counters_and_the_limit_of_signatures():
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            _, calls = _counted(lambda: env.transition(params, s, a))
+            _, calls = _counted(lambda: _graphed(env, params, s, a))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     reported = sum("synchroniz" in str(w.message) for w in caught)
