@@ -23,8 +23,8 @@ non-zero without its final line:
    planner's path of 8 x 4096 nodes; and the highway transition kernel
    (``ops/highway_transition.py``) against ``_transition_eager`` run eagerly
    on the card, every output bit for bit, at 4096 and 20,480 rows of 15
-   vehicles, timed beside the eager body and its graph replay with the
-   bound of ``perfbench/counts/highway.py``;
+   vehicles, timed beside the eager body with the bound of
+   ``perfbench/counts/highway.py``;
 4. the OLOP batch path at full width: ``olop_plan_batch`` on CartPole, 4096
    trees, 23 episodes x horizon 8, gamma 0.95, one ``kl_bound_indexed_``
    launch per episode, checked against the same first 64 trees planned on the
@@ -74,8 +74,8 @@ non-zero without its final line:
     ``merge-v0`` (4096 trees x 2 models, 40 expansions); each timed, profiled
     (MCTS over 3 episodes of its 23) and its first 64 trees held against the
     CPU plan under the same noise; every transition of the timed plan must
-    be one launch of the highway transition kernel (none on the graph
-    path);
+    be one launch of the highway transition kernel (no run of the eager
+    body);
 15. the highway agent paths, 3 steps each: ``DeterministicPlannerAgent.json``,
     ``MCTSAgent.json``, ``OLOPAgent/kl-olop.json`` and
     ``IntervalRobustPlannerAgent/baseline.json`` on ``HighwayEnv/env.json``,
@@ -419,15 +419,14 @@ LAUNCH_COUNTERS = {"kl_bound": "kl_bound.launches",
                    "kl_bound_indexed_": "kl_bound_indexed_.launches",
                    "kl_bounds_pair_": "kl_bounds_pair_.launches",
                    "highway_transition": "env.transition_kernel.launches"}
-# the highway transitions that took the graph path (envs/base.py::TransitionGraphs)
-GRAPH_COUNTERS = ("env.transition_graph.replays", "env.transition_graph.captures",
-                  "env.transition_graph.eager")
+# the highway transitions that ran the eager body (envs/highway.py::HighwayEnv.transition)
+EAGER_COUNTER = "env.transition_eager.calls"
 
 
 def reset_launches():
     from rl_agents_torch.trainer.profiling import counters
 
-    for counter in (*LAUNCH_COUNTERS.values(), *GRAPH_COUNTERS):
+    for counter in (*LAUNCH_COUNTERS.values(), EAGER_COUNTER):
         counters[counter] = 0
 
 
@@ -457,16 +456,16 @@ def expect_launches(path: str, got: dict, kl_bound: int, kl_bound_indexed_: int,
 def expect_kernel_took_every_transition(path: str, launches: dict):
     """Every highway transition since the counters were zeroed ran on the
     card as one launch of the hand-written kernel: at least one launch, and
-    no call on the graph path (``GRAPH_COUNTERS``, which count every other
+    no run of the eager body (``EAGER_COUNTER``, which counts every other
     highway transition, the CPU's included)."""
     from rl_agents_torch.trainer.profiling import counters
 
-    graph = {counter: counters[counter] for counter in GRAPH_COUNTERS}
+    eager = counters[EAGER_COUNTER]
     print(f"  {path}: {launches['highway_transition']} highway transition kernel launches, "
-          f"graph path {graph}")
-    if launches["highway_transition"] < 1 or any(graph.values()):
+          f"{eager} eager calls")
+    if launches["highway_transition"] < 1 or eager:
         raise AssertionError(f"{path}: not every highway transition launched the kernel: "
-                             f"{launches['highway_transition']} launches, graph path {graph}")
+                             f"{launches['highway_transition']} launches, {eager} eager calls")
 
 
 def timed_plans(plan, count: int = PLANS) -> list:
@@ -976,10 +975,9 @@ def check_highway_transition(dev) -> dict:
     (an MCTS or KL-OLOP step over 4096 trees) and 20,480 (OPD's 4096 x 5
     children) of ``HighwayEnv/env.json``'s 15 vehicles, on states stepped 0
     to 4 times from ``reset``. Timed at both: the kernel on the device (a
-    captured graph of launches), an eager call, the host's time a call, the
-    eager body (its ~314 library kernels launched one by one) and the graph
-    replay of it that the kernel replaced; the bound is
-    ``perfbench/counts/highway.py``'s."""
+    captured graph of launches), an eager call, the host's time a call and
+    the eager body (its ~314 library kernels launched one by one), the
+    kernel's plain version; the bound is ``perfbench/counts/highway.py``'s."""
     from perfbench.counts.highway import transition_bytes, transition_ops
     from rl_agents_torch.factory import load_environment
     from rl_agents_torch.trainer.profiling import counters
@@ -1009,9 +1007,6 @@ def check_highway_transition(dev) -> dict:
         run_kernel = lambda: env.transition(params, state, action)
         run_plain = lambda: env._transition_eager(params, state, action)
         ms, call_ms, plain_ms = time_kernel(run_kernel, run_plain, 20, 20, 200, 20)
-        for _ in range(3):  # a signature's first graph call is eager, its second captures
-            env._graphs(env._transition_eager, params, state, action)
-        graph_ms = cuda_ms(lambda: env._graphs(env._transition_eager, params, state, action), 20)
         torch.cuda.synchronize()
         started = time.perf_counter()
         for _ in range(200):
@@ -1022,11 +1017,10 @@ def check_highway_transition(dev) -> dict:
         bytes_s = transition_bytes(rows, vehicles) / PEAK_BYTES_PER_S
         bound_ms, bound_by = max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
         print(f"highway_transition rows={rows}: kernel {ms!r} ms on the device, {call_ms!r} ms per "
-              f"eager call, {host_us!r} us of host time a call; eager body {plain_ms!r} ms, its "
-              f"graph replay {graph_ms!r} ms; bound {bound_ms!r} ms by {bound_by}, "
-              f"{bound_ms / ms!r} of the bound")
+              f"eager call, {host_us!r} us of host time a call; eager body {plain_ms!r} ms; "
+              f"bound {bound_ms!r} ms by {bound_by}, {bound_ms / ms!r} of the bound")
         times = dict(ms=ms, call_ms=call_ms, host_us=host_us, plain_ms=plain_ms,
-                     library_ms=plain_ms, graph_ms=graph_ms, bound_ms=bound_ms, bound_by=bound_by)
+                     library_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         if rows == TREES:
             result.update(times)
         else:

@@ -4,10 +4,9 @@
 //
 // Replaces no TPU kernel. The JAX package writes this transition as array
 // code (rl_agents_tpu/envs/highway.py) and XLA fuses it; the port's eager
-// body launches about 314 small PyTorch kernels a call (which
-// envs/base.py::TransitionGraphs replays from one CUDA graph), each reading
-// and writing [B, V] or [3B, V, V] tensors through device memory. Here a
-// scene never leaves the SM.
+// body launches about 314 small PyTorch kernels a call, each reading and
+// writing [B, V] or [3B, V, V] tensors through device memory. Here a scene
+// never leaves the SM.
 //
 // What bounds it: nothing the card is short of. A call at 4096 rows of 15
 // vehicles moves 2.77 MB and runs about 68 M operations

@@ -34,8 +34,9 @@ import numpy as np
 import torch
 
 from rl_agents_torch.envs.base import (Box, Discrete, EnvHandle, EnvSpec, FunctionalEnv,
-                                       StepOut, TransitionGraphs, TupleSpace)
+                                       StepOut, TupleSpace)
 from rl_agents_torch.ops import highway_transition as transition_kernel
+from rl_agents_torch.trainer.profiling import counters
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import fma, fnma, recip
 
@@ -49,6 +50,10 @@ MIN_SPEED = 0.0
 TRAFFIC_SPEED = 25.0  # the traffic's IDM target speed
 _INV_TRAFFIC_SPEED = recip(TRAFFIC_SPEED)  # _idm_terms' inv_v0 for the traffic
 _TWO_PI = 2 * math.pi
+# The counters of a transition that runs the eager body: its own, and the name
+# under which the benchmark's ``env.transition_kernel_share.*`` reads those
+# calls until that metric divides by ``env.transition_eager.calls``.
+EAGER_COUNTERS = ("env.transition_eager.calls", "env.transition_graph.eager")
 
 
 class HighwayParams(NamedTuple):
@@ -79,7 +84,7 @@ class _IDMTerms(NamedTuple):
     a: Any             # idm_a
     neg_b: Any         # -idm_b
     denominator: Any   # 2 sqrt(idm_a idm_b)
-    inv_v0: Any        # 1 / max(target speed, 1)
+    inv_v0: float      # 1 / max(target speed, 1)
     one: Any           # 1.0
 
 
@@ -188,7 +193,6 @@ class HighwayEnv(FunctionalEnv):
         self.lidar_cells = lidar_cells
         self.lidar_range = lidar_range
         self.spec = EnvSpec("highway", max_episode_steps)
-        self._graphs = TransitionGraphs()
 
     @property
     def action_space(self):
@@ -298,14 +302,12 @@ class HighwayEnv(FunctionalEnv):
     @staticmethod
     def _idm_terms(params, target_speed) -> _IDMTerms:
         """The IDM's per-model terms, taken once per transition and shaped
-        for ``[B, V]`` operands. The target speed (a Python float or a
-        tensor) is a constant of the JAX package's program, so its division
-        by it is a multiplication by the float32 reciprocal."""
+        for ``[B, V]`` operands. The target speed (a Python float) is a
+        constant of the JAX package's program, so its division by it is a
+        multiplication by the float32 reciprocal."""
         a, b = _row(params.idm_a, 2), _row(params.idm_b, 2)
-        inv_v0 = recip(max(target_speed, 1.0)) if isinstance(target_speed, float) \
-            else 1.0 / torch.clamp(target_speed, min=1.0)
         return _IDMTerms(s0=_row(params.idm_s0, 2), t0=_row(params.idm_t0, 2), a=a, neg_b=-b,
-                         denominator=2 * torch.sqrt(a * b), inv_v0=inv_v0,
+                         denominator=2 * torch.sqrt(a * b), inv_v0=recip(max(target_speed, 1.0)),
                          one=torch.ones((), device=a.device))
 
     @staticmethod
@@ -427,19 +429,18 @@ class HighwayEnv(FunctionalEnv):
         the card, meta-actions of one ego run as one hand-written kernel
         (``ops/highway_transition.py``), the same bits; the forms that
         ``kernel_declines`` names (continuous actions, several egos, a
-        transition of a subclass's own, grad into an input, CPU tensors) go
-        to a CUDA graph of ``_transition_eager`` per input signature
-        (``envs/base.py::TransitionGraphs``), which runs it eagerly on the
-        CPU."""
+        transition of a subclass's own, grad into an input, CPU tensors) run
+        the eager body, counted in ``EAGER_COUNTERS``."""
         del generator, noise
         action = torch.as_tensor(action, device=state.x.device)
         if self.kernel_declines(params, state, action) is None:
             return transition_kernel.launch(params, state, action, self.lanes,
                                             self.max_episode_steps, _INV_TRAFFIC_SPEED)
-        return self._graphs(self._transition_eager, params, state, action)
+        counters.update(EAGER_COUNTERS)
+        return self._transition_eager(params, state, action)
 
     def kernel_declines(self, params: HighwayParams, state: HighwayState, action):
-        """Which form of call ``transition`` hands to the graph path, or None
+        """Which form of call ``transition`` runs the eager body for, or None
         where it launches the kernel: the kernel computes ``HighwayEnv``'s own
         body for meta-actions of one ego on the card. A call of that form
         whose tensors the kernel cannot take (more than
@@ -1085,7 +1086,7 @@ class TwoWayEnv(HighwayEnv):
         search_lane = torch.where(is_oncoming, state.lane + 100.0, state.lane)
         has_l, gap_l, speed_l = self._neighbor_stats(state.x, state.speed, search_lane,
                                                      search_lane, state.alive, True)
-        idm = self._idm_terms(params, torch.tensor(10.0, device=device))
+        idm = self._idm_terms(params, 10.0)
         idm_acc = self._idm_from_leader(idm, state.speed, has_l, gap_l, speed_l,
                                         fused_interaction=False)
         ego_target = _pick(params.target_speeds, speed_level)

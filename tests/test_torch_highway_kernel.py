@@ -2,20 +2,21 @@
 (``csrc/highway_transition.cu``, ``ops/highway_transition.py``) and the rule
 by which ``HighwayEnv.transition`` takes it (``kernel_declines``).
 
-On the CPU every form runs as before (``TransitionGraphs`` runs the eager
-body), and the rule gives each form's reason; the card tests (marker
-``card``; they skip without one) hold the kernel bit for bit against
-``_transition_eager`` run eagerly on the card, field by field with dtypes,
-shapes and aliasing, on seeded and adversarial scenes, and check that a
-call of the kernel's form with tensors it cannot take raises. Run them on
-the card with ``python -m pytest tests/test_torch_highway_kernel.py -m card -s``."""
+``transition`` has two outcomes: a launch of the kernel
+(``env.transition_kernel.launches``) or the eager body
+(``env.transition_eager.calls``). On the CPU every form runs the eager body,
+and the rule gives each form's reason; the card tests (marker ``card``; they
+skip without one) hold the kernel bit for bit against ``_transition_eager``
+run eagerly on the card, field by field with dtypes, shapes and aliasing, on
+seeded and adversarial scenes, and check that a call of the kernel's form
+with tensors it cannot take raises. Run them on the card with
+``python -m pytest tests/test_torch_highway_kernel.py -m card -s``."""
 import json
 import time
+from pathlib import Path
 
 import pytest
 import torch
-from test_torch_transition_graphs import (CONFIGS, HIGHWAY, _actions, _assert_same_bits,
-                                          _leaves, _scenes)
 
 from rl_agents_torch.agents.robust.robust import _model_rows
 from rl_agents_torch.envs import highway as th
@@ -25,17 +26,55 @@ from rl_agents_torch.trainer.profiling import counters
 
 torch.set_num_threads(1)
 
+CONFIGS = Path(__file__).resolve().parent.parent / "scripts" / "configs"
+HIGHWAY = {"id": "highway", "vehicles_count": 15, "lanes_count": 4, "duration": 40}
 ON_THE_CARD = "not all on one CUDA device"
 CPU = "CPU tensors"
-COUNTED = ("env.transition_kernel.launches", "env.transition_graph.replays",
-           "env.transition_graph.captures", "env.transition_graph.eager")
+COUNTED = ("env.transition_kernel.launches", "env.transition_eager.calls")
 
 
 def _counted(run):
     before = counters.copy()
     out = run()
     delta = counters - before
+    own, benchmarks = th.EAGER_COUNTERS  # the benchmark's name counts every eager call too
+    assert delta[benchmarks] == delta[own]
     return out, tuple(delta[k] for k in COUNTED)
+
+
+def _scenes(env, params, rows: int, seed: int = 0, steps: int = 3):
+    """``rows`` states from the seed, stepped eagerly a few times with random
+    actions so that lanes change and some egos crash."""
+    gen = torch.Generator(device=params.dt.device).manual_seed(seed)
+    state, _ = env.reset(params, gen, rows)
+    for _ in range(steps):
+        state = env._transition_eager(params, state, _actions(env, rows, gen)).state
+    return state
+
+
+def _actions(env, rows: int, gen):
+    device = gen.device
+    if env.action_type == "continuous":
+        return torch.rand((rows, 2), generator=gen, device=device) * 2.0 - 1.0
+    shape = (rows,) if env.controlled_vehicles == 1 else (rows, env.controlled_vehicles)
+    return torch.randint(0, 5, shape, generator=gen, device=device)
+
+
+def _leaves(out) -> dict:
+    """Every output field of a ``StepOut`` by name."""
+    fields = {f"state.{k}": v for k, v in out.state._asdict().items()}
+    fields.update(obs=out.obs, reward=out.reward, terminated=out.terminated,
+                  truncated=out.truncated)
+    fields.update({f"info.{k}": v for k, v in out.info.items()})
+    return fields
+
+
+def _assert_same_bits(got, want):
+    got, want = _leaves(got), _leaves(want)
+    assert got.keys() == want.keys()
+    for name, value in want.items():
+        assert got[name].dtype == value.dtype and got[name].shape == value.shape, name
+        assert torch.equal(got[name], value), name  # a tolerance of exactly 0
 
 
 def _per_row_params(params, rows: int):
@@ -48,6 +87,32 @@ def _per_row_params(params, rows: int):
 
 
 # --------------------------------------------------------------------- CPU
+
+@pytest.mark.parametrize("config", [HIGHWAY, {"id": "highway-v0", "controlled_vehicles": 2},
+                                    json.loads((CONFIGS / "HighwayEnv" /
+                                                "env_continuous.json").read_text())],
+                         ids=["meta", "two_egos", "continuous"])
+def test_on_the_cpu_every_call_runs_eagerly_and_is_counted(config):
+    handle = load_environment(dict(config), device="cpu")
+    env, params = handle.functional, handle.params
+    state = _scenes(env, params, 6)
+    gen = torch.Generator().manual_seed(1)
+    action = _actions(env, 6, gen)
+    want = env._transition_eager(params, state, action)
+    for _ in range(3):
+        out, calls = _counted(lambda: env.transition(params, state, action))
+        _assert_same_bits(out, want)
+        assert calls == (0, 1)
+
+
+def test_the_overriding_envs_keep_their_own_transition():
+    """Two-way's transition is its own body; the intersection's
+    ``transition`` is the highway one (the kernel on the card), its ``step``
+    its own."""
+    assert th.TwoWayEnv.transition is not th.HighwayEnv.transition
+    assert th.IntersectionEnv.transition is th.HighwayEnv.transition
+    assert th.IntersectionEnv.step is not th.HighwayEnv.step
+
 
 def _form(name: str, device):
     """(env, params, state, action) of one form of call, on 6 rows."""
@@ -71,14 +136,14 @@ def _form(name: str, device):
 # form: (the rule's reason on the CPU, counted deltas of one call on the CPU,
 # what a call on the card does)
 FORMS = {
-    "meta_one_ego": (CPU, (0, 0, 0, 1), "kernel"),
-    "continuous": ("continuous actions", (0, 0, 0, 1), "graph"),
-    "two_egos": ("several egos", (0, 0, 0, 1), "graph"),
-    "two_way": ("a transition of its own", (0, 0, 0, 0), "own body"),
-    "intersection": (CPU, (0, 0, 0, 1), "kernel"),
-    "per_row": (CPU, (0, 0, 0, 1), "kernel"),
-    "vehicles_33": (CPU, (0, 0, 0, 1), "raises"),
-    "grad": ("grad into an input", (0, 0, 0, 1), "graph"),
+    "meta_one_ego": (CPU, (0, 1), "kernel"),
+    "continuous": ("continuous actions", (0, 1), "eager"),
+    "two_egos": ("several egos", (0, 1), "eager"),
+    "two_way": ("a transition of its own", (0, 0), "own body"),
+    "intersection": (CPU, (0, 1), "kernel"),
+    "per_row": (CPU, (0, 1), "kernel"),
+    "vehicles_33": (CPU, (0, 1), "raises"),
+    "grad": ("grad into an input", (0, 1), "eager"),
 }
 
 
@@ -200,7 +265,7 @@ def _kernel_against_eager(env, params, state, action):
     aliasing; returns the kernel's output."""
     assert env.kernel_declines(params, state, action) is None
     out, delta = _counted(lambda: env.transition(params, state, action))
-    assert delta == (1, 0, 0, 0)
+    assert delta == (1, 0)
     _assert_same_bits(out, env._transition_eager(params, state, action))
     assert out.state.alive is state.alive
     assert out.terminated is out.state.crashed and out.info["crashed"] is out.state.crashed
@@ -359,7 +424,7 @@ def test_inside_a_users_capture_the_kernel_is_captured():
     outer = torch.cuda.CUDAGraph()
     with torch.cuda.graph(outer):
         out, delta = _counted(lambda: env.transition(params, static_state, static_action))
-    assert delta == (1, 0, 0, 0)
+    assert delta == (1, 0)
     for k in range(3):
         next_state = _scenes(env, params, 128, seed=10 + k)
         next_action = _actions(env, 128, gen)
@@ -373,9 +438,9 @@ def test_inside_a_users_capture_the_kernel_is_captured():
 @pytest.mark.card
 @pytest.mark.parametrize("name", FORMS)
 def test_on_the_card_each_form_takes_its_path(name):
-    """The forms the kernel takes launch it; the other forms take the graph
-    path as before (a signature's first call eager), two-way its own body;
-    a call of the kernel's form with more vehicles than it takes raises."""
+    """The forms the kernel takes launch it; the other forms run the eager
+    body, two-way its own; a call of the kernel's form with more vehicles
+    than it takes raises."""
     dev = _card()
     env, params, state, action = _form(name, dev)
     _, calls, path = FORMS[name]
@@ -385,11 +450,11 @@ def test_on_the_card_each_form_takes_its_path(name):
     else:
         assert (env.kernel_declines(params, state, action) is None) == (path == "kernel")
         _, delta = _counted(lambda: env.transition(params, state, action))
-        assert delta == ((1, 0, 0, 0) if path == "kernel" else calls)
+        assert delta == ((1, 0) if path == "kernel" else calls)
     # CPU tensors on a machine with a card still run eagerly
     env, params, state, action = _form("meta_one_ego", "cpu")
     assert env.kernel_declines(params, state, action) == CPU
-    assert _counted(lambda: env.transition(params, state, action))[1] == (0, 0, 0, 1)
+    assert _counted(lambda: env.transition(params, state, action))[1] == (0, 1)
 
 
 @pytest.mark.card
@@ -449,7 +514,7 @@ def _host_us(call, dev, n: int = 200) -> float:
 @pytest.mark.card
 def test_time_a_launch():
     """The kernel's device time a launch and host time a call, beside the
-    eager body's ~314 kernels that the graph replays, at the cells' rows;
+    eager body's ~314 kernels, its plain version, at the cells' rows;
     printed for PERF.md with the share of perfbench/counts/highway.py's
     bound (67 TFLOP/s float32, 3.35 TB/s), then the host time of a call's
     parts: the rule, the launch, and in it the outputs' allocation and
@@ -465,9 +530,9 @@ def test_time_a_launch():
         action = _actions(env, rows, torch.Generator(device=dev).manual_seed(1))
         bound_ms = max(transition_ops(rows, 15) / 67e12, transition_bytes(rows, 15) / 3.35e12) * 1e3
         paths = {"kernel": lambda: env.transition(params, state, action),
-                 "graph": lambda: env._graphs(env._transition_eager, params, state, action)}
+                 "eager": lambda: env._transition_eager(params, state, action)}
         for path, call in paths.items():
-            for _ in range(3):  # the build, and the graph's eager call and capture
+            for _ in range(3):  # the build and the first calls' allocations
                 call()
             device_ms = _device_ms(call, dev)
             host_us = _host_us(call, dev)
