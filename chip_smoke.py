@@ -75,7 +75,9 @@ non-zero without its final line:
     (MCTS over 3 episodes of its 23) and its first 64 trees held against the
     CPU plan under the same noise; every transition of the timed plan must
     be one launch of the highway transition kernel (no run of the eager
-    body);
+    body); MCTS's plan under injected noise must replay its episodes as a
+    CUDA graph (one capture), its plans drawing from a generator run them
+    eagerly;
 15. the highway agent paths, 3 steps each: ``DeterministicPlannerAgent.json``,
     ``MCTSAgent.json``, ``OLOPAgent/kl-olop.json`` and
     ``IntervalRobustPlannerAgent/baseline.json`` on ``HighwayEnv/env.json``,
@@ -247,6 +249,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -421,6 +424,9 @@ LAUNCH_COUNTERS = {"kl_bound": "kl_bound.launches",
                    "highway_transition": "env.transition_kernel.launches"}
 # the highway transitions that ran the eager body (envs/highway.py::HighwayEnv.transition)
 EAGER_COUNTER = "env.transition_eager.calls"
+# the fused MCTS planner's episodes, run eagerly or replayed, and its captures
+EPISODE_COUNTERS = ("mcts.episode_eager.calls", "mcts.episode_graph.replays",
+                    "mcts.episode_graph.captures")
 
 
 def reset_launches():
@@ -1649,6 +1655,7 @@ def check_highway_batch_paths(dev) -> dict:
     path, its launches and measurements."""
     from rl_agents_torch.agents.tree_search import batch
     from rl_agents_torch.agents.tree_search.mcts import gumbel
+    from rl_agents_torch.trainer.profiling import counters
 
     env, params, states = highway_case(dev)
     A = HW_ACTIONS
@@ -1662,19 +1669,32 @@ def check_highway_batch_paths(dev) -> dict:
         return torch.Generator().manual_seed(seed)
 
     print("-- MCTS")
+    # the card's episodes by how their draws came: (eager, replayed, captures)
+    episode_counts = {"injected": Counter(), "drawn": Counter()}
+
+    def mcts(d, n, noise, episodes=EPISODES):
+        before = counters.copy()
+        result = batch.mcts_plan_batch(env, params(d), states(d, n), gen(d, noise), probs, probs,
+                                       noise=noise, device=d, **dict(HW_MCTS, episodes=episodes))
+        if d == dev:
+            episode_counts["drawn" if noise is None else "injected"].update(counters - before)
+        return result
+
     out["highway_mcts"] = highway_batch_path(
-        dev, "mcts_plan_batch on highway",
-        lambda d, n, noise: batch.mcts_plan_batch(env, params(d), states(d, n), gen(d, noise),
-                                                  probs, probs, noise=noise, device=d, **HW_MCTS),
+        dev, "mcts_plan_batch on highway", mcts,
         lambda n: gumbel((EPISODES, HORIZON, 2, A, n), host(21), "cpu"),
         lambda noise, n: noise[..., :n], lambda r: plan_fields(*r),
         ("actions", "lengths", "count", "parent"), ("value",), TREES * EPISODES * HORIZON,
         "env-steps",
         validate=lambda g: expect((g["count"][:, 0] == EPISODES).all()
                                   and np.isfinite(g["value"]).all(), "MCTS on highway: counts"),
-        short=(HW_PROFILED_EPISODES, lambda d, n: batch.mcts_plan_batch(
-            env, params(d), states(d, n), gen(d, None), probs, probs, device=d,
-            **dict(HW_MCTS, episodes=HW_PROFILED_EPISODES)), 0))
+        short=(HW_PROFILED_EPISODES, lambda d, n: mcts(d, n, None, HW_PROFILED_EPISODES), 0))
+    episodes = {kind: tuple(c[k] for k in EPISODE_COUNTERS) for kind, c in episode_counts.items()}
+    print(f"  MCTS episodes on the card (eager, replayed, captures): {episodes}")
+    expect(episodes == {"injected": (0, EPISODES, 1),
+                        "drawn": (HW_PLANS * EPISODES + HW_PROFILED_EPISODES, 0, 0)},
+           "MCTS on highway: the injected plan must replay its episodes, the drawn ones not")
+    out["highway_mcts"]["episodes"] = episodes
 
     print("-- OPD")
     P = HW_OPD["plan_capacity"]

@@ -143,6 +143,8 @@ class FunctionalEnv:
     holds only static structure (sizes, spaces)."""
 
     spec: EnvSpec = EnvSpec("functional-env")
+    # whether ``transition`` may draw from its generator where no noise is given
+    transition_draws: bool = True
 
     def default_params(self, device="cuda"):
         raise NotImplementedError

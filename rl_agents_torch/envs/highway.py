@@ -439,6 +439,10 @@ class HighwayEnv(FunctionalEnv):
         counters.update(EAGER_COUNTERS)
         return self._transition_eager(params, state, action)
 
+    # the dynamics draw nothing (``transition`` ignores its generator and noise):
+    # a planner may capture them without injected env draws
+    transition_draws = False
+
     def kernel_declines(self, params: HighwayParams, state: HighwayState, action):
         """Which form of call ``transition`` runs the eager body for, or None
         where it launches the kernel: the kernel computes ``HighwayEnv``'s own

@@ -10,10 +10,15 @@ by hand. Traced, a plan records its spans (``planner.plan``; each step's
 episode; ``mcts.extract``) and counts its steps and its copies from the
 host; tracing changes no bit.
 
-One test needs a CUDA card (marker ``card``; it skips without one): the
-plan's ``host.syncs`` equal the synchronisations that
-``torch.cuda.set_sync_debug_mode`` reports. Run it on the card with
+On the CPU every episode runs eagerly, and ``episode_graph_declines`` names
+why for each form of call. The tests marked ``card`` need a CUDA card (they
+skip without one): the plan's ``host.syncs`` equal the synchronisations that
+``torch.cuda.set_sync_debug_mode`` reports; replayed episodes give the eager
+episodes' bits and counts, keep no output of the caller's, and share one
+capture among plans of fewer episodes; inside a caller's own capture the
+planner takes no graph of its own. Run them on the card with
 ``python -m pytest tests/test_torch_mcts_highway.py -m card -s``."""
+import time
 import warnings
 from typing import NamedTuple
 
@@ -25,6 +30,8 @@ from perfbench.envs import highway as ref_env
 from perfbench.pbcore import draws as draw
 from perfbench.reference import mcts as ref_mcts
 from rl_agents_torch.agents.tree_search.batch import mcts_plan_batch
+from rl_agents_torch.agents.tree_search.mcts_fused import episode_graph_declines
+from rl_agents_torch.envs import cartpole, highway
 from rl_agents_torch.factory import load_environment
 from rl_agents_torch.trainer import profiling
 from rl_agents_torch.trainer.profiling import counters
@@ -47,6 +54,13 @@ def _case(trees: int, seed: int, device="cpu"):
     drawn = ref_env.scene_draws(draw.generator(seed, draw.SCENES, 0, device), trees, model)
     states0, _ = env.reset(params, None, trees, noise=drawn)
     return env, params, states0, model, ref_env.reset(model, drawn)
+
+
+def _scenes(env, params, trees: int, seed: int, device):
+    """Other seeded start states for the same env and params."""
+    drawn = ref_env.scene_draws(draw.generator(seed, draw.SCENES, 0, device), trees,
+                                ref_env.model(HIGHWAY))
+    return env.reset(params, None, trees, noise=drawn)[0]
 
 
 def _noise(episodes: int, horizon: int, trees: int, seed: int, device="cpu"):
@@ -201,6 +215,73 @@ def test_host_syncs_count_what_is_copied_onto_the_device(handed, copies):
     assert counters["host.syncs"] - before == 2 + copies
 
 
+EPISODE_COUNTERS = ("mcts.episode_eager.calls", "mcts.episode_graph.replays",
+                    "mcts.episode_graph.captures")
+
+
+def _episodes_counted(counted) -> tuple:
+    """(eager episodes, replayed episodes, captures) in a counters' increase."""
+    return tuple(counted.get(name, 0) for name in EPISODE_COUNTERS)
+
+
+@pytest.mark.parametrize("form", ["injected draws", "a generator", "grad into an input"])
+def test_on_the_cpu_every_episode_runs_eagerly(form):
+    episodes, horizon = 3, 2
+    env, params, states0, _, _ = _case(2, 17)
+    noise, gen = _noise(episodes, horizon, 2, 17), None
+    if form == "a generator":
+        noise, gen = None, torch.Generator().manual_seed(0)
+    if form == "grad into an input":
+        states0 = states0._replace(speed=states0.speed.clone().requires_grad_())
+    before = counters.copy()
+    mcts_plan_batch(env, params, states0, gen, _probs(), _probs(), num_actions=A,
+                    episodes=episodes, horizon=horizon, gamma=0.9, temperature=TEMPERATURE,
+                    noise=noise, device="cpu")
+    counted = counters - before
+    assert _episodes_counted(counted) == (episodes, 0, 0)
+    assert counted["mcts.steps"] == episodes * horizon
+
+
+class _Unmarked:
+    """The program's env without the mark that its transition draws nothing."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def transition(self, *args):
+        return self.env.transition(*args)
+
+
+@pytest.mark.parametrize("form, reason", [
+    ("a generator", "draws from a generator"),
+    ("an env that may draw", "the env draws from a generator"),
+    ("grad into an input", "grad into an input"),
+    ("the CPU", "not a CUDA device"),
+    ("an env that may draw, its draws injected, on the CPU", "not a CUDA device"),
+])
+def test_the_rule_names_why_a_plan_runs_its_episodes_eagerly(form, reason):
+    env, params, states0, _, _ = _case(2, 19)
+    noise, env_noise, device = _noise(2, 2, 2, 19), None, torch.device("cuda")
+    inputs = (*states0, noise)
+    if form == "a generator":
+        noise = None
+    if form.startswith("an env that may draw"):
+        env = _Unmarked(env)
+    if form.endswith("its draws injected, on the CPU"):
+        env_noise = torch.zeros((2, 2, 2))
+    if form == "grad into an input":
+        inputs = (*inputs, torch.ones(A, requires_grad=True))
+    if form.endswith("the CPU"):
+        device = torch.device("cpu")
+    assert episode_graph_declines(env, device, noise, env_noise, inputs) == reason
+
+
+def test_the_highway_family_draws_nothing_in_its_transition():
+    assert not any(e.transition_draws
+                   for e in (highway.HighwayEnv, highway.IntersectionEnv, highway.TwoWayEnv))
+    assert cartpole.CartPoleEnv.transition_draws
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -233,3 +314,95 @@ def test_host_syncs_equal_the_synchronisations_cuda_reports():
     counted = counters["host.syncs"] - before
     print(f"MCTS batch plan: {counted} counted, {reported} reported")
     assert counted == reported > 0
+
+
+COUNTED = ("mcts.steps", "env.transition_kernel.launches", "host.syncs")
+
+
+def _counted_plan(env, params, states0, noise, episodes, horizon, device):
+    before = counters.copy()
+    started = time.perf_counter()
+    out = _program(env, params, states0, noise, episodes, horizon, 0.9, device)
+    torch.cuda.synchronize(device)
+    return out, counters - before, time.perf_counter() - started
+
+
+def _assert_same_plan(got, want):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for field in got[2]._fields:
+        assert torch.equal(getattr(got[2], field), getattr(want[2], field)), field
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("trees, episodes", [(4096, 15), (8, 2)])
+def test_on_the_card_replayed_episodes_give_the_eager_bits_and_counts(trees, episodes):
+    """Three plans of new start states and draws: the graph's (captured in
+    the first, a new env's) against the same plans' eager episodes, an env
+    without the mark that its transition draws nothing."""
+    dev = _card()
+    horizon = 13
+    env, params, _, _, _ = _case(trees, 2**31 + trees, dev)
+    for call in range(3):
+        seed = 2**33 + 10 * call + trees
+        states0 = _scenes(env, params, trees, seed, dev)
+        noise = _noise(episodes, horizon, trees, seed, dev)
+        got, counted, graph_s = _counted_plan(env, params, states0, noise, episodes, horizon, dev)
+        want, eager, eager_s = _counted_plan(_Unmarked(env), params, states0, noise, episodes,
+                                             horizon, dev)
+        print(f"B={trees} E={episodes} H={horizon} call {call}: graph {graph_s * 1e3!r} ms, "
+              f"eager {eager_s * 1e3!r} ms")
+        _assert_same_plan(got, want)
+        assert _episodes_counted(counted) == (0, episodes, call == 0)
+        assert _episodes_counted(eager) == (episodes, 0, 0)
+        assert [counted[k] for k in COUNTED] == [eager[k] for k in COUNTED]
+        assert counted["mcts.steps"] == counted["env.transition_kernel.launches"] \
+            == episodes * horizon
+
+
+@pytest.mark.card
+def test_on_the_card_a_plan_keeps_its_outputs_after_later_plans():
+    dev = _card()
+    env, params, states0, _, _ = _case(8, 41, dev)
+    first = _program(env, params, states0, _noise(2, 13, 8, 41, dev), 2, 13, 0.9, dev)
+    kept = (first[0].clone(), first[1].clone(),
+            type(first[2])(*(x.clone() for x in first[2])))
+    for seed in (42, 43):
+        _program(env, params, _scenes(env, params, 8, seed, dev), _noise(2, 13, 8, seed, dev),
+                 2, 13, 0.9, dev)
+    torch.cuda.synchronize(dev)
+    _assert_same_plan(first, kept)
+
+
+@pytest.mark.card
+def test_on_the_card_plans_of_fewer_episodes_share_the_capture():
+    """15, 4 and 2 episodes, as the cell's window and its traced segments
+    plan: one capture, one replay an episode, the eager bits."""
+    dev = _card()
+    trees, horizon = 64, 13
+    env, params, states0, _, _ = _case(trees, 51, dev)
+    noise = _noise(15, horizon, trees, 51, dev)
+    before = counters.copy()
+    for episodes in (15, 4, 2):
+        got = _program(env, params, states0, noise[:episodes], episodes, horizon, 0.9, dev)
+        want = _program(_Unmarked(env), params, states0, noise[:episodes], episodes, horizon,
+                        0.9, dev)
+        _assert_same_plan(got, want)
+    assert _episodes_counted(counters - before) == (21, 21, 1)
+
+
+@pytest.mark.card
+def test_inside_a_users_capture_the_plan_takes_no_graph_of_its_own():
+    """A caller's capture is under way: the rule declines, so the planner
+    would not begin a capture inside it; outside, the same call is taken."""
+    dev = _card()
+    env, params, states0, _, _ = _case(8, 61, dev)
+    noise = _noise(2, 13, 8, 61, dev)
+    inputs = (*states0, *params, noise)
+    outer, ran = torch.cuda.CUDAGraph(), torch.zeros(1, device=dev)
+    with torch.cuda.graph(outer):
+        reason = episode_graph_declines(env, dev, noise, None, inputs)
+        ran += 1
+    outer.replay()
+    torch.cuda.synchronize(dev)
+    assert reason == "inside a capture" and int(ran) == 1
+    assert episode_graph_declines(env, dev, noise, None, inputs) is None
