@@ -13,9 +13,10 @@ Every arena field carries a leading tree axis B and rows are indexed directly;
 the JAX package's one-hot masks exist only for the TPU. A tree whose stopping
 rule fired freezes under a mask while the others go on, and the planner itself
 reads nothing back to the host inside the episode loop: every path is exactly
-``horizon`` deep, so the backup is a fixed number of steps. The one read-back
-is the Newton solve's of each chance backup, once per block of trips
-(``utils/math.py::newton_iteration``).
+``horizon`` deep, so the backup is a fixed number of steps. Each chance
+backup's constrained solve (``utils/math.py::max_expectation_under_constraint``)
+replays one CUDA graph on a card, which reads nothing back either; on the CPU
+its Newton solve reads back once per block of trips.
 
 The JAX package solves each visited node's KL bounds (upper and lower) at
 the step that visits it. Here one ``kl_bounds_pair_`` call solves both bounds
@@ -24,16 +25,45 @@ the backup: on a CUDA device one launch per episode. The deferral gives the
 same arenas. Nothing reads ``d_mu_ucb`` or ``d_mu_lcb`` before the backup
 (the descent reads only the chance nodes' value bounds), and the nodes of one
 path lie at distinct depths, so each is updated once per episode and the
-call sees the count and sum its step wrote. The count-dependent threshold is
-read from a table of ``reward_threshold`` over every count a node can reach
-(at most ``episodes + 1``), made once per plan by the same function.
+call sees the count and sum its step wrote. The threshold is read from a
+table over every count a node can reach (at most ``episodes + 1``), made
+once per plan: ``reward_threshold`` of each count, or, where the
+configuration gives the threshold as ``c*np.log(time)`` (upstream evaluates
+``upper_bound.threshold`` with ``time`` the budget's episodes), ``c
+log(episodes)`` at every count. The KL solve divides it by the count.
 
 Like the JAX package's loop (``episode <= episodes``), a plan runs up to
 ``episodes + 1`` episodes. The decision arena is sized for all of them
 (``1 + (episodes + 1) * horizon`` nodes), so that no insert can be dropped.
+
+Where every draw is given (the Gumbel tie breaks, and the env's draws or an
+env that draws nothing) on a CUDA device, an episode's descent replays one
+CUDA graph (``_DescentGraph``, as ``mcts_fused.py`` replays an MCTS
+episode): the arenas and the buffers the descent reads are then static, one
+set for each signature, loaded and cleared at a plan's start, and the plan
+returns copies of them. The KL bounds, the backups and the root's choice
+run eagerly on them, each chance backup's solve a graph of its own.
+
+Traced (``trainer/profiling.py``), a plan is one ``planner.plan`` span; an
+episode is a ``gape.descend`` span (expansion, action choice, the
+next-state slot's lookup and insert, statistics, or the replay of all of
+it) holding one ``env.transition`` span a step where it runs eagerly, then
+``gape.bounds`` (the paired KL launch), ``gape.backup`` (the H decision and
+H chance backups, their Newton solves among them) and ``gape.root`` (the
+root's UGapE gaps and the stopping rule; at the end of the plan, the best
+arm).
+``counters["gape.episodes"]`` and ``"gape.steps"`` count the episodes and
+their steps (episodes x H), and ``"host.syncs"`` the copies of host tables
+and scalars to the device at a plan's start, of draws handed over from
+another device or drawn on a generator's, and the Newton solves' read-backs
+where they run eagerly (``utils/math.py::newton_iteration``);
+``"gape.descent_graph.captures"`` and ``".replays"`` count the descent's
+captures and replays.
 """
 from __future__ import annotations
 
+import contextlib
+from collections import OrderedDict
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -41,10 +71,12 @@ import torch
 
 from rl_agents_torch.agents.tree_search.common import allocation
 from rl_agents_torch.agents.tree_search.mcts import gumbel, noise_tensor
+from rl_agents_torch.agents.tree_search.mcts_fused import _copied, episode_graph_declines
 from rl_agents_torch.agents.tree_search.olop import OLOPAgent, parse_threshold
 from rl_agents_torch.envs.base import FunctionalEnv, params_to
 from rl_agents_torch.ops.hashing import obs_key
 from rl_agents_torch.ops.kl_bound import kl_bounds_pair_
+from rl_agents_torch.trainer.profiling import counters, span
 from rl_agents_torch.utils.device import resolve_device
 from rl_agents_torch.utils.math import fma, max_expectation_under_constraint
 
@@ -89,9 +121,15 @@ def reward_threshold(count, horizon: int, num_actions: int, confidence: float) -
 def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | None,
                   num_actions: int, episodes: int, horizon: int, gamma: float, accuracy: float,
                   confidence: float, transition_threshold_coeff: float, width: int = 2,
-                  noise=None, env_noise=None, device="cuda"):
+                  noise=None, env_noise=None, device="cuda",
+                  reward_threshold_coeff: float | None = None):
     """Plan B trees at once from ``states0`` (a state NamedTuple with a leading
     batch dim). Returns ``(best action [B], episodes_used [B], GapETree)``.
+
+    The reward KL bounds' threshold is ``reward_threshold_coeff *
+    log(episodes)`` where the coefficient is given (a configured
+    ``c*np.log(time)``), else the BAI threshold ``reward_threshold`` of each
+    count, which is infinite at ``confidence`` 1.0.
 
     ``noise`` is Gumbel noise ``[episodes + 1, H, B, A]`` that breaks the ties
     of the optimistic action below the root; without it, it is drawn from
@@ -100,16 +138,20 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
     MDP); without it the env draws from ``generator``.
     """
     device = resolve_device(device)
+    with span("planner.plan"):
+        return _plan(env, params, states0, generator, num_actions, episodes, horizon, gamma,
+                     accuracy, confidence, transition_threshold_coeff, width, noise, env_noise,
+                     device, reward_threshold_coeff)
+
+
+def _plan(env, params, states0, generator, num_actions, episodes, horizon, gamma, accuracy,
+          confidence, transition_threshold_coeff, width, noise, env_noise, device,
+          reward_threshold_coeff):
     params = params_to(params, device)
     states0 = params_to(states0, device)
     A, W, H, E = num_actions, width, horizon, episodes
     B = states0[0].shape[0]
-    Nd = 1 + (E + 1) * H
-    Nc = 1 + Nd * A
     i64, f32 = torch.int64, torch.float32
-    rows = torch.arange(B, device=device)
-    offsets = torch.arange(A, device=device)
-    slots_w = torch.arange(W, device=device)
     # initial value bounds (1 - gamma^(H-depth)) / (1 - gamma), tabulated on
     # the host with scalar float32 powf, as XLA's pow rounds
     g32 = np.float32(gamma)
@@ -117,10 +159,20 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
         [(np.float32(1) - g32 ** np.float32(k)) / (np.float32(1) - g32) for k in range(H + 1)],
         dtype=f32, device=device)
     gamma = torch.tensor(g32, device=device)
+    log_time = torch.log(torch.tensor(float(E), dtype=f32, device=device))
     # the reward threshold of every count a node reaches: one visit an episode
-    threshold_table = reward_threshold(torch.arange(E + 2, device=device), H, A, confidence)
-    transition_threshold = (torch.tensor(transition_threshold_coeff, dtype=f32, device=device)
-                            * torch.log(torch.tensor(float(E), dtype=f32, device=device)))
+    if reward_threshold_coeff is None:
+        threshold_table = reward_threshold(torch.arange(E + 2, device=device), H, A, confidence)
+    else:
+        threshold_table = (torch.tensor(reward_threshold_coeff, dtype=f32, device=device)
+                           * log_time).expand(E + 2).contiguous()
+    transition_threshold = torch.tensor(transition_threshold_coeff, dtype=f32,
+                                        device=device) * log_time
+    # the five host values above (the last the confidence, which
+    # ``reward_threshold`` copies, or the reward threshold's coefficient) each
+    # wait for the device's queue on their copy, and so does each draw handed
+    # over from another device
+    counters["host.syncs"] += 5 + sum(_copied(x, device) for x in (noise, env_noise))
     if noise is not None:
         noise = noise_tensor(noise, device)
     elif generator is None:
@@ -128,27 +180,33 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
     if env_noise is not None:
         env_noise = noise_tensor(env_noise, device)
 
-    def init_upper(depth):
-        return upper_table[(H - depth).clamp(min=0)]
-
-    def full(shape, fill, dtype):
-        return torch.full(shape, fill, dtype=dtype, device=device)
-
-    tree = GapETree(
-        d_parent=full((B, Nd), -1, i64), d_depth=full((B, Nd), 0, i64),
-        d_count=full((B, Nd), 0, i64), d_cum_reward=full((B, Nd), 0.0, f32),
-        d_mu_ucb=full((B, Nd), 1.0, f32), d_mu_lcb=full((B, Nd), 0.0, f32),
-        d_value_upper=upper_table[H].expand(B, Nd).clone(), d_value_lower=full((B, Nd), 0.0, f32),
-        d_children=full((B, Nd, A), -1, i64), d_done=full((B, Nd), False, torch.bool),
-        c_parent=full((B, Nc), -1, i64), c_depth=full((B, Nc), 0, i64),
-        c_count=full((B, Nc), 0, i64),
-        c_value_upper=upper_table[H].expand(B, Nc).clone(), c_value_lower=full((B, Nc), 0.0, f32),
-        c_child_keys=full((B, Nc, W), 0, i64), c_children=full((B, Nc, W), -1, i64),
-        c_n_children=full((B, Nc), 0, i64),
-        d_used=full((B,), 1, i64), c_used=full((B,), 0, i64))
+    # a plan whose draws are all given replays its episodes' descents from one
+    # CUDA graph, on static buffers loaded here; else everything runs eagerly
+    replayed = None
+    if episode_graph_declines(env, device, noise, env_noise, (*params, *states0)) is None:
+        replayed = _descent_graph(env, params, states0, noise, env_noise, A, W, H, E)
+        replayed.start(params, states0, upper_table)
+        params, states0, upper_table = replayed.params, replayed.states0, replayed.upper_table
+        tree, rows, offsets, slots_w = replayed.tree, replayed.rows, replayed.offsets, replayed.slots
+        active, episodes_used, root, path = (replayed.active, replayed.episodes_used,
+                                             replayed.root, replayed.path)
+    else:
+        tree = _arena(B, _decision_nodes(E, H), A, W, device)
+        _clear(tree, upper_table[H])
+        rows = torch.arange(B, device=device)
+        offsets = torch.arange(A, device=device)
+        slots_w = torch.arange(W, device=device)
+        active = torch.ones(B, dtype=torch.bool, device=device)
+        episodes_used = torch.zeros(B, dtype=i64, device=device)
+        root = torch.zeros(B, dtype=i64, device=device)
+        path = torch.empty((H, B), dtype=i64, device=device)
     (d_parent, d_depth, d_count, d_cum_reward, d_mu_ucb, d_mu_lcb, d_value_upper, d_value_lower,
      d_children, d_done, c_parent, c_depth, c_count, c_value_upper, c_value_lower, c_child_keys,
      c_children, c_n_children, d_used, c_used) = tree
+    Nd, Nc = d_parent.shape[1], c_parent.shape[1]
+
+    def init_upper(depth):
+        return upper_table[(H - depth).clamp(min=0)]
 
     def put(arena, index, value, mask):
         """arena[b, index[b]] = value[b] where mask[b]; ``index`` is ``[B]``
@@ -233,16 +291,15 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
         delta = pick(up, challenger) - pick(lo, best)
         return selected, best, challenger, delta
 
-    active = torch.ones(B, dtype=torch.bool, device=device)
-    episodes_used = torch.zeros(B, dtype=i64, device=device)
-    root = torch.zeros(B, dtype=i64, device=device)
-    path = torch.empty((H, B), dtype=i64, device=device)
-    for episode in range(E + 1):
-        g = noise[episode] if noise is not None else gumbel((H, B, A), generator, device)
+    def descend(g, env_draws, spanned=True):
+        """An episode's path from the root, ``horizon`` steps, into ``path``:
+        Gumbel tie breaks ``g`` ``[H, B, A]``, the env's draws ``env_draws``
+        ``[H, B, ...]`` or None. A capture records no ``env.transition``
+        span (``spanned`` False)."""
         expand_decision(root, active)
         node, state = root, states0
-        # sampling rule (mdp_gape.py:183-198): UGapE at the root, which only
-        # depth 0 visits, and the optimistic action below it
+        # sampling rule (mdp_gape.py:183-198): UGapE at the root, which
+        # only depth 0 visits, and the optimistic action below it
         selected = root_gaps()[0]
         for h in range(H):
             expand_decision(node, active)
@@ -253,8 +310,9 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
             optimistic = (torch.where(ties, 0.0, -torch.inf) + g[h]).argmax(dim=1)
             action = selected if h == 0 else optimistic
             chance = ch.gather(1, action[:, None]).squeeze(1).clamp(min=0)
-            out = env.step(params, state, action, generator,
-                           None if env_noise is None else env_noise[episode, h])
+            with span("env.transition") if spanned else contextlib.nullcontext():
+                out = env.step(params, state, action, generator,
+                               None if env_draws is None else env_draws[h])
 
             # next-state slot by obs key (mdp_gape.py:272-286)
             okey = obs_key(out.obs)
@@ -286,24 +344,194 @@ def mdp_gape_plan(env: FunctionalEnv, params, states0, generator: torch.Generato
             path[h] = child
             node, state = child, out.state
 
+    for episode in range(E + 1):
+        counters["gape.episodes"] += 1
+        env_draws = None if env_noise is None else env_noise[episode]
+        with span("gape.descend"):
+            if replayed is not None:
+                replayed.replay(noise[episode], env_draws, descend)
+            else:
+                if noise is not None:
+                    g = noise[episode]
+                else:  # drawn on the generator's device, then copied to the planner's
+                    g = gumbel((H, B, A), generator, device)
+                    counters["host.syncs"] += generator.device.type != device.type
+                descend(g, env_draws)
+        counters["gape.steps"] += H
+
         # the KL bounds of the path's nodes (mdp_gape.py:200-212), both in one
         # call, deferred to here: see the module docstring
-        kl_bounds_pair_(d_mu_ucb, d_mu_lcb, d_cum_reward, d_count, path, threshold_table, active)
+        with span("gape.bounds"):
+            kl_bounds_pair_(d_mu_ucb, d_mu_lcb, d_cum_reward, d_count, path, threshold_table,
+                            active)
 
         # backup to root (mdp_gape.py:214-226, 288-305): the leaf lies at
         # depth H, so H chance backups between H + 1 decision backups
-        for h in reversed(range(H)):
-            backup_decision(path[h], active)
-            chance = d_parent[rows, path[h]].clamp(min=0)
-            backup_chance(chance, active)
-        backup_decision(root, active)
+        with span("gape.backup"):
+            for h in reversed(range(H)):
+                backup_decision(path[h], active)
+                chance = d_parent[rows, path[h]].clamp(min=0)
+                backup_chance(chance, active)
+            backup_decision(root, active)
 
-        delta = root_gaps()[3]
-        episodes_used += active
-        active = active & ~(delta < accuracy)
+        with span("gape.root"):
+            delta = root_gaps()[3]
+            episodes_used += active
+            active &= ~(delta < accuracy)
 
-    best = root_gaps()[1]
-    return best, episodes_used, tree
+    with span("gape.root"):
+        best = root_gaps()[1]
+    if replayed is None:
+        return best, episodes_used, tree
+    # the plan's own arena, cut to its episodes, and copies of the static buffers
+    nd = _decision_nodes(E, H)
+    cut = {"d": nd, "c": 1 + nd * A}
+    return best, episodes_used.clone(), GapETree(*(
+        x.clone() if x.dim() == 1 else x[:, :cut[name[0]]].clone()
+        for name, x in zip(GapETree._fields, tree)))
+
+
+def _decision_nodes(episodes: int, horizon: int) -> int:
+    """Decision nodes a tree holds: the root and one a step of ``episodes +
+    1`` episodes, so that no insert can be dropped."""
+    return 1 + (episodes + 1) * horizon
+
+
+def _arena(B: int, Nd: int, A: int, W: int, device) -> GapETree:
+    """Uninitialised arenas of B trees of ``Nd`` decision and ``1 + Nd * A``
+    chance nodes (``_clear`` fills them)."""
+    Nc = 1 + Nd * A
+    i64, f32, bool_ = torch.int64, torch.float32, torch.bool
+    shapes = {"d": (B, Nd), "c": (B, Nc)}
+    dtypes = dict(d_cum_reward=f32, d_mu_ucb=f32, d_mu_lcb=f32, d_value_upper=f32,
+                  d_value_lower=f32, d_done=bool_, c_value_upper=f32, c_value_lower=f32)
+    wide = dict(d_children=A, c_child_keys=W, c_children=W)
+    fields = {}
+    for name in GapETree._fields:
+        shape = (B,) if name in ("d_used", "c_used") else shapes[name[0]] + (
+            (wide[name],) if name in wide else ())
+        fields[name] = torch.empty(shape, dtype=dtypes.get(name, i64), device=device)
+    return GapETree(**fields)
+
+
+# the arenas' values at a plan's start; the value bounds' upper ends hold the
+# horizon's bound, ``_clear``'s argument
+_FILLS = dict(d_parent=-1, d_depth=0, d_count=0, d_cum_reward=0.0, d_mu_ucb=1.0, d_mu_lcb=0.0,
+              d_value_upper=None, d_value_lower=0.0, d_children=-1, d_done=False, c_parent=-1,
+              c_depth=0, c_count=0, c_value_upper=None, c_value_lower=0.0, c_child_keys=0,
+              c_children=-1, c_n_children=0, d_used=1, c_used=0)
+
+
+def _clear(tree: GapETree, upper) -> None:
+    """Fill the arenas with a plan's start: the fields' constants, and
+    ``upper`` (a 0-d tensor) in the upper value bounds."""
+    for name, x in zip(GapETree._fields, tree):
+        fill = _FILLS[name]
+        x.fill_(upper if fill is None else fill)
+
+
+class _DescentGraph:
+    """An MDP-GapE episode's descent (``descend`` in ``_plan``) of one
+    signature captured as a CUDA graph, and the static buffers it reads and
+    writes: the params, the start states, the value bounds' table, the
+    arenas (sized for ``capacity`` episodes: a plan of fewer uses their
+    first nodes), the index vectors, the active mask, the episodes run, the
+    root, the path, and one episode's draws. ``start`` loads a plan's inputs
+    and clears the arenas; ``replay`` copies in an episode's draws and
+    replays the descent, capturing it first in the first plan. Every copy is
+    from the device. The backups, the KL bounds and the root's choice run
+    eagerly on the same buffers."""
+
+    def __init__(self, env, params, states0, noise, env_noise, num_actions: int, width: int,
+                 horizon: int, capacity: int):
+        device = states0[0].device
+        B, A, W, H = states0[0].shape[0], num_actions, width, horizon
+        i64 = torch.int64
+        self.env, self.horizon, self.capacity = env, horizon, capacity  # the key holds id(env)
+        like = lambda x: torch.empty(x.shape, dtype=x.dtype, device=device)
+        self.params = type(params)(*map(like, params))
+        self.states0 = type(states0)(*map(like, states0))
+        self.upper_table = torch.empty(H + 1, dtype=torch.float32, device=device)
+        self.tree = _arena(B, _decision_nodes(capacity, H), A, W, device)
+        self.rows = torch.arange(B, device=device)
+        self.offsets = torch.arange(A, device=device)
+        self.slots = torch.arange(W, device=device)
+        self.active = torch.empty(B, dtype=torch.bool, device=device)
+        self.episodes_used = torch.empty(B, dtype=i64, device=device)
+        self.root = torch.zeros(B, dtype=i64, device=device)
+        self.path = torch.empty((H, B), dtype=i64, device=device)
+        self.g = like(noise[0])
+        self.env_draws = None if env_noise is None else like(env_noise[0])
+        self.graph = self.counted = None
+
+    def start(self, params, states0, upper_table):
+        for static, x in zip((*self.params, *self.states0), (*params, *states0)):
+            static.copy_(x)
+        self.upper_table.copy_(upper_table)
+        self._clear()
+
+    def _clear(self):
+        _clear(self.tree, self.upper_table[self.horizon])
+        self.active.fill_(True)
+        self.episodes_used.zero_()
+
+    def replay(self, g, env_draws, descend):
+        self.g.copy_(g)
+        if env_draws is not None:
+            self.env_draws.copy_(env_draws)
+        if self.graph is None:
+            self._capture(descend)
+        self.graph.replay()
+        counters.update(self.counted)
+        counters["gape.descent_graph.replays"] += 1
+
+    def _capture(self, descend):
+        """Capture the descent on the current device, after one run on a side
+        stream (which builds and loads what it launches), from the inputs
+        loaded at a plan's first episode; then clear the arenas the run
+        wrote. The run and the capture count only as one capture, and
+        ``counted`` keeps what the captured descent counted."""
+        run = lambda: descend(self.g, self.env_draws, spanned=False)
+        before = counters.copy()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        warm = counters.copy()
+        with torch.cuda.graph(graph):
+            run()
+        self.graph, self.counted = graph, counters - warm
+        counters.subtract(counters - before)
+        counters["gape.descent_graph.captures"] += 1
+        self._clear()
+
+
+# captures kept, the most recently used last; each holds its arenas and its graph's memory
+_GRAPHS_KEPT = 4
+_graphs: OrderedDict = OrderedDict()
+
+
+def _descent_graph(env, params, states0, noise, env_noise, num_actions: int, width: int,
+                   horizon: int, episodes: int) -> _DescentGraph:
+    """The captured descent of this call's signature: the env (by identity),
+    the params' and the state's types, shapes and dtypes, the device, the
+    action count, the slot count, the horizon and the draws' shapes. A new
+    one, not yet captured, where none is kept or the kept one's arenas hold
+    fewer than ``episodes``."""
+    key = (id(env), type(params), tuple((x.shape, x.dtype) for x in params), type(states0),
+           tuple((x.shape, x.dtype) for x in states0), states0[0].device, num_actions, width,
+           horizon, noise.shape[1:], None if env_noise is None else (env_noise.shape[1:],
+                                                                      env_noise.dtype))
+    kept = _graphs.pop(key, None)
+    if kept is None or kept.capacity < episodes:
+        kept = _DescentGraph(env, params, states0, noise, env_noise, num_actions, width, horizon,
+                             episodes)
+    _graphs[key] = kept
+    while len(_graphs) > _GRAPHS_KEPT:
+        _graphs.popitem(last=False)
+    return kept
 
 
 class MDPGapEAgent(OLOPAgent):
@@ -341,6 +569,8 @@ class MDPGapEAgent(OLOPAgent):
 
     def planner_plan(self, env, observation):
         functional = env.functional
+        # a configured c*np.log(time), else the BAI threshold (upstream's default)
+        threshold = self.config["upper_bound"].get("threshold")
         best, episodes_used, tree = mdp_gape_plan(
             functional, env.params, env.state, self.generator,
             num_actions=functional.action_space.n,
@@ -349,7 +579,8 @@ class MDPGapEAgent(OLOPAgent):
             confidence=float(self.config["confidence"]),
             transition_threshold_coeff=parse_threshold(
                 self.config["upper_bound"].get("transition_threshold", 0.1)),
-            width=max(int(self.config["max_next_states_count"]), 1), device=self.device)
+            width=max(int(self.config["max_next_states_count"]), 1), device=self.device,
+            reward_threshold_coeff=None if threshold is None else parse_threshold(threshold))
         self.last_plan_data = tree
         self.budget_used = int(episodes_used[0]) * int(self.config["horizon"])
         return [int(best[0])]

@@ -74,10 +74,20 @@ class FiniteMDPEnv(FunctionalEnv):
             initial_state=torch.zeros((), dtype=torch.int64, device=device),
         )
 
-    def reset(self, params: MDPParams, generator, batch: int = 1):
+    def reset_noise(self, params: MDPParams, generator, batch: int = 1):
+        """The reset's input, ``[batch]`` int64 start states: every one at
+        ``initial_state``, as ``reset`` puts them without ``noise`` (a finite
+        MDP's reset draws nothing). A caller that plans from other states
+        hands them to ``reset`` as ``noise`` instead."""
+        return params.initial_state.expand(batch).clone()
+
+    def reset(self, params: MDPParams, generator, batch: int = 1, noise=None):
+        """``batch`` states at their start: ``noise``, ``[batch]`` int64 state
+        indices, where it is given, else ``initial_state``."""
         device = params.reward.device
-        state = MDPState(s=params.initial_state.expand(batch).clone(),
-                         t=torch.zeros(batch, dtype=torch.int64, device=device),
+        s = self.reset_noise(params, generator, batch) if noise is None \
+            else torch.as_tensor(noise, dtype=torch.int64, device=device).reshape(batch).clone()
+        state = MDPState(s=s, t=torch.zeros(batch, dtype=torch.int64, device=device),
                          done=torch.zeros(batch, dtype=torch.bool, device=device))
         return state, state.s
 
@@ -128,6 +138,15 @@ class FiniteMDPEnv(FunctionalEnv):
         truncated = t >= self.max_episode_steps
         new_state = MDPState(s=s_next, t=t, done=terminated)
         return StepOut(new_state, s_next, reward, terminated, truncated, {})
+
+    def transition(self, params: MDPParams, state: MDPState, action, generator=None,
+                   noise=None) -> StepOut:
+        """``step``, except that where neither ``generator`` nor ``noise`` is
+        given a stochastic MDP takes ``null_noise``, the one fixed draw
+        (``step`` raises there)."""
+        if generator is None and noise is None:
+            noise = self.null_noise(state.s.shape[0], params.reward.device)
+        return self.step(params, state, action, generator, noise)
 
 
 def _rows(params: MDPParams, s):
