@@ -24,7 +24,11 @@ non-zero without its final line:
    (``ops/highway_transition.py``) against ``_transition_eager`` run eagerly
    on the card, every output bit for bit, at 4096 and 20,480 rows of 15
    vehicles, timed beside the eager body with the bound of
-   ``perfbench/counts/highway.py``;
+   ``perfbench/counts/highway.py``; and the constrained solve's kernel
+   (``ops/max_expectation.py``) against ``_max_expectation`` run eagerly on
+   the card, bit for bit, on problems drawn as the chance backups make them
+   at MDP-GapE's ``[8192, 2]`` and stochastic GBOP's ``[8192, 3]``, timed
+   beside the plain version with its bound by bytes;
 4. the OLOP batch path at full width: ``olop_plan_batch`` on CartPole, 4096
    trees, 23 episodes x horizon 8, gamma 0.95, one ``kl_bound_indexed_``
    launch per episode, checked against the same first 64 trees planned on the
@@ -41,12 +45,11 @@ non-zero without its final line:
    MDP of ``FiniteMDPEnv/env_garnet.json`` at the sizes of
    ``FiniteMDPEnv/agents/mdp-gape.json`` (confidence 1.0) and again at the
    agent's default confidence 0.9, one ``kl_bounds_pair_`` launch per
-   episode (21 a plan; the dense form 0), the Newton trips of its chance
-   backups counted,
+   episode (21 a plan; the dense form 0), every constrained solve of its
+   chance backups a launch of the solve's kernel (105 a plan, none plain),
    and the first 64 trees of a plan on a deterministic garnet checked against
-   the CPU plan under the same noise (one timed plan, one with a read-back
-   every Newton trip and one profiled at confidence 1.0; one timed plan, not
-   profiled, at 0.9);
+   the CPU plan under the same noise (one timed plan and one profiled at
+   confidence 1.0; one timed plan, not profiled, at 0.9);
 9. the MDP-GapE agent path: ``mdp-gape.json`` on ``env_garnet.json`` for one
    episode, cut to 3 steps;
 10. the stochastic GBOP batch path: ``gbop_stochastic_plan_batch`` on the
@@ -56,8 +59,8 @@ non-zero without its final line:
     launch per (episode, depth) step, 165 a plan, its value-iteration sweeps
     counted and
     its first 64 trees checked against the CPU plan under the same noise; then
-    the same planner with three next-state slots on 512 trees, one plan, the Newton
-    trips of its constrained expectations counted;
+    the same planner with three next-state slots on 512 trees, one plan, the
+    launches of its constrained expectations' kernel counted;
 11. the GBOP-D batch path: ``gbop_plan_batch`` on Sailing, 4096 trees, 25
     expansions (``gbop-d.json``; one timed plan), its Bellman sweeps counted;
     no kernel;
@@ -291,15 +294,16 @@ MCTS_TEMPERATURE = 40.0
 GAPE = dict(num_actions=4, episodes=20, horizon=5, gamma=0.7, accuracy=0.0, confidence=1.0,
             transition_threshold_coeff=0.1, width=2)
 GAPE_DEFAULT = dict(GAPE, confidence=0.9)
-# (label, sizes, timed plans, a plan with a read-back every trip)
-# (label, sizes, timed plans, a plan with a read-back every Newton trip,
-# profiled): the 0.9 plan's 164k kernels took the profiler about half a minute
-GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE, GAPE_PLANS, True, True),
-              ("agent default, confidence 0.9", GAPE_DEFAULT, 1, False, False))
+# (label, sizes, timed plans, profiled): the 0.9 plan's kernels took the
+# profiler about half a minute
+GAPE_CASES = (("mdp-gape.json, confidence 1.0", GAPE, GAPE_PLANS, True),
+              ("agent default, confidence 0.9", GAPE_DEFAULT, 1, False))
 GAPE_STATES = 16
 # the planner runs while ``episode <= episodes``: episodes + 1 episodes, one
 # paired launch each over the episode's path (both bounds of H x B nodes)
 GAPE_KL_LAUNCHES = GAPE["episodes"] + 1
+# one constrained solve a chance backup, H an episode: one solve kernel launch each
+GAPE_SOLVES = GAPE_KL_LAUNCHES * GAPE["horizon"]
 # The Sailing planner study (SailingEnv/env.json with agents/gbop.json,
 # gbop-d.json, opd.json): budget 200 at gamma 0.99. Stochastic GBOP splits it
 # into 3 episodes x horizon 55 with one next-state slot and the thresholds
@@ -421,9 +425,12 @@ def card_line() -> str:
 LAUNCH_COUNTERS = {"kl_bound": "kl_bound.launches",
                    "kl_bound_indexed_": "kl_bound_indexed_.launches",
                    "kl_bounds_pair_": "kl_bounds_pair_.launches",
-                   "highway_transition": "env.transition_kernel.launches"}
+                   "highway_transition": "env.transition_kernel.launches",
+                   "max_expectation": "max_expectation_under_constraint.kernel_launches"}
 # the highway transitions that ran the eager body (envs/highway.py::HighwayEnv.transition)
 EAGER_COUNTER = "env.transition_eager.calls"
+# the constrained solves that ran the plain version (utils/math.py::_max_expectation)
+PLAIN_SOLVES = "max_expectation_under_constraint.eager_calls"
 # the fused MCTS planner's episodes, run eagerly or replayed, and its captures
 EPISODE_COUNTERS = ("mcts.episode_eager.calls", "mcts.episode_graph.replays",
                     "mcts.episode_graph.captures")
@@ -432,7 +439,7 @@ EPISODE_COUNTERS = ("mcts.episode_eager.calls", "mcts.episode_graph.replays",
 def reset_launches():
     from rl_agents_torch.trainer.profiling import counters
 
-    for counter in (*LAUNCH_COUNTERS.values(), EAGER_COUNTER):
+    for counter in (*LAUNCH_COUNTERS.values(), EAGER_COUNTER, PLAIN_SOLVES):
         counters[counter] = 0
 
 
@@ -446,15 +453,20 @@ NO_LAUNCHES = {name: 0 for name in LAUNCH_COUNTERS}
 
 
 def expect_launches(path: str, got: dict, kl_bound: int, kl_bound_indexed_: int,
-                    kl_bounds_pair_: int = 0, highway_transition: int | None = None):
+                    kl_bounds_pair_: int = 0, highway_transition: int | None = None,
+                    max_expectation: int | None = None):
     """The launches of each KL form must be the given numbers; those of the
-    highway transition kernel too where ``highway_transition`` is given
-    (where it is None the count is listed in the ``kernels`` line, and the
-    highway paths hold it with ``expect_kernel_took_every_transition``)."""
+    highway transition kernel and of the constrained solve's too where
+    ``highway_transition`` or ``max_expectation`` is given (where it is None
+    the count is listed in the ``kernels`` line, and the paths that run the
+    kernel hold it with ``expect_kernel_took_every_transition`` or
+    ``expect_kernel_took_every_solve``)."""
     want = {"kl_bound": kl_bound, "kl_bound_indexed_": kl_bound_indexed_,
             "kl_bounds_pair_": kl_bounds_pair_,
             "highway_transition": (got["highway_transition"] if highway_transition is None
-                                   else highway_transition)}
+                                   else highway_transition),
+            "max_expectation": (got["max_expectation"] if max_expectation is None
+                                else max_expectation)}
     if got != want:
         raise AssertionError(f"{path}: launches {got}, expected {want}")
 
@@ -1034,6 +1046,82 @@ def check_highway_transition(dev) -> dict:
     return result
 
 
+def backup_problems(rows: int, n: int, dev, seed: int):
+    """Constrained problems drawn as the chance backups make them: the upper
+    rows' values in [0, 3) and the lower rows' negated (the optimistic and
+    the pessimistic problem in one solve), next-state frequencies from
+    counts in 0..4 (rows of zero counts among them), the budget
+    0.1 log(20) over the count; every seventh row nearly constant (the
+    solves that run every Newton trip), every eleventh constant, every
+    thirteenth with its largest value on an atom of zero mass (case A)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = torch.rand((rows, n), generator=gen, device=dev) * 3.0
+    f[rows // 2:] = -f[rows // 2:]
+    f[::7, 1:] = f[::7, :1] + 3e-4
+    f[::11, 1:] = f[::11, :1]
+    counts = torch.randint(0, 5, (rows, n), generator=gen, device=dev)
+    f[::13, 0], counts[::13, 0] = 4.0, 0
+    counts[::13, 1] = counts[::13, 1].clamp(min=1)
+    q = counts.float() / counts.sum(dim=1, keepdim=True).clamp(min=1).float()
+    c = 0.1 * float(np.log(20)) / counts.sum(dim=1).clamp(min=1).float()
+    return f, q, c
+
+
+def check_max_expectation(dev) -> dict:
+    """The constrained solve's kernel (``ops/max_expectation.py``) through
+    ``max_expectation_under_constraint`` against ``_max_expectation`` run
+    eagerly on the card, bit for bit, at MDP-GapE's ``[8192, 2]`` (the
+    benchmark cell's 2 x 4096 problems a chance backup) and at ``[8192, 3]``
+    (stochastic GBOP's three slots), on ``backup_problems`` of three seeds at
+    eps 1e-2 and one at 1e-3. Timed at both: the kernel on the device (a
+    captured graph of launches), an eager call, the host's time a call, and
+    the plain version (its ~53 kernels a Newton trip and a read-back every 8
+    trips); the bound is by bytes (f, q and c read, p written, at 3.35 TB/s)."""
+    from rl_agents_torch.trainer.profiling import counters
+    from rl_agents_torch.utils.math import _max_expectation, max_expectation_under_constraint
+
+    counter = LAUNCH_COUNTERS["max_expectation"]
+    result = {"name": "max_expectation", "route": "cuda",
+              "source": "rl_agents_torch/csrc/max_expectation.cu",
+              "replaces": "the plain version utils/math.py::_max_expectation (XLA compiles the "
+                          "JAX package's solve: no Pallas kernel)",
+              "launches": None, "max_abs_err": 0.0, "on_main_path": True}
+    for rows, n in ((2 * TREES, 2), (2 * TREES, 3)):
+        for seed, eps in ((2**31 + n, 1e-2), (2**32 + n, 1e-2), (2**33 + n, 1e-2),
+                          (2**31 + 7 * n, 1e-3)):
+            f, q, c = backup_problems(rows, n, dev, seed)
+            before = counters[counter]
+            got = max_expectation_under_constraint(f, q, c, eps)
+            if counters[counter] != before + 1:
+                raise AssertionError("max_expectation_under_constraint did not launch the kernel")
+            want = _max_expectation(f, q, c, eps)
+            if not torch.equal(got, want):
+                raise AssertionError(f"max_expectation [{rows}, {n}] seed {seed} eps {eps}: "
+                                     f"{int((got != want).sum())} of {got.numel()} atoms differ")
+        print(f"max_expectation [{rows}, {n}]: equal to the plain version bit for bit on four "
+              f"draws of backup problems (eps 1e-2 and 1e-3)")
+        run_kernel = lambda: max_expectation_under_constraint(f, q, c)
+        run_plain = lambda: _max_expectation(f, q, c, 1e-2)
+        ms, call_ms, plain_ms = time_kernel(run_kernel, run_plain, 20, 20, 200, 3)
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        for _ in range(200):
+            run_kernel()
+        host_us = (time.perf_counter() - started) / 200 * 1e6
+        torch.cuda.synchronize()
+        bound_ms = 4 * (3 * rows * n + rows) / PEAK_BYTES_PER_S * 1e3
+        print(f"max_expectation [{rows}, {n}]: kernel {ms!r} ms on the device, {call_ms!r} ms per "
+              f"eager call, {host_us!r} us of host time a call; plain version {plain_ms!r} ms; "
+              f"bound {bound_ms!r} ms by bytes, {bound_ms / ms!r} of the bound")
+        times = dict(ms=ms, call_ms=call_ms, host_us=host_us, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by="bytes")
+        if n == 2:
+            result.update(times)
+        else:
+            result.update({f"{key}_n{n}": value for key, value in times.items()})
+    return result
+
+
 def profile_plan(plan, host_events: bool = True) -> dict:
     """Device busy share of one plan and its costliest device kernels, from
     torch.profiler's CUDA activity. ``host_events=False`` leaves the host's
@@ -1188,31 +1276,37 @@ def check_mcts_batch_path(dev) -> dict:
     return launches
 
 
-def reset_newton():
+def solve_line() -> str:
+    """The constrained solves since ``reset_launches``: on the card each is
+    one launch of its kernel, whose Newton trips the host does not see."""
     from rl_agents_torch.trainer.profiling import counters
 
-    counters["newton_iteration.calls"] = counters["newton_iteration.trips"] = 0
+    return (f"{counters[LAUNCH_COUNTERS['max_expectation']]} launches of "
+            f"max_expectation_under_constraint's kernel, {counters[PLAIN_SOLVES]} plain solves")
 
 
-def newton_line() -> str:
+def expect_kernel_took_every_solve(path: str, launches: dict):
+    """Every constrained solve since the counters were zeroed ran on the card
+    as one launch of the solve's kernel: at least one launch (the launches
+    read in ``launches``), and no run of the plain version."""
     from rl_agents_torch.trainer.profiling import counters
 
-    calls, trips = counters["newton_iteration.calls"], counters["newton_iteration.trips"]
-    return (f"{calls} Newton solves of max_expectation_under_constraint, {trips} "
-            f"trips ({trips / max(calls, 1)!r} per solve)")
+    if launches["max_expectation"] < 1 or counters[PLAIN_SOLVES]:
+        raise AssertionError(f"{path}: not every constrained solve launched the kernel: "
+                             f"{launches['max_expectation']} launches, "
+                             f"{counters[PLAIN_SOLVES]} plain solves")
 
 
 def check_gape_batch_path(dev) -> dict:
     """``mdp_gape_plan_batch`` on the stochastic garnet at the config's
     confidence and at the agent's default: timed, its KL launches counted and
-    their device time read from the profiler, the Newton trips of its chance
-    backups counted (as run, in blocks, and as needed, read back every trip);
-    then one plan of each on the deterministic garnet against the CPU under
-    the same noise. Returns the launches of the config's plans."""
+    their device time read from the profiler, its chance backups' solves
+    counted (each a launch of the solve's kernel); then one plan of each on
+    the deterministic garnet against the CPU under the same noise. Returns
+    the launches of the config's plans."""
     from rl_agents_torch.agents.tree_search.batch import mdp_gape_plan_batch
     from rl_agents_torch.agents.tree_search.mcts import gumbel
     from rl_agents_torch.convert import tree_to_numpy
-    from rl_agents_torch.utils import math as port_math
 
     steps = TREES * (GAPE["episodes"] + 1) * GAPE["horizon"]
     cpu = torch.device("cpu")
@@ -1221,7 +1315,7 @@ def check_gape_batch_path(dev) -> dict:
     fields = lambda best, used, tree: dict(tree_to_numpy(tree)._asdict(), best=best.cpu().numpy(),
                                            episodes_used=used.cpu().numpy())
     config_launches = None
-    for label, kw, plans, read_back, profiled_plan in GAPE_CASES:
+    for label, kw, plans, profiled_plan in GAPE_CASES:
         print(f"-- {label}")
         env, params, states = garnet_case(dev, branching=2)
         states0 = states(dev, TREES)
@@ -1229,27 +1323,18 @@ def check_gape_batch_path(dev) -> dict:
         plan = lambda: mdp_gape_plan_batch(env, params, states0, generator, device=dev, **kw)
         # no warm-up plan: phase 3 ran this planner at these shapes already
         reset_launches()
-        reset_newton()
         times = timed_plans(plan, plans)
         launches = read_launches()
         expect_launches(f"MDP-GapE batch path, {plans} plans", launches, 0, 0,
-                        plans * GAPE_KL_LAUNCHES)
+                        plans * GAPE_KL_LAUNCHES, max_expectation=plans * GAPE_SOLVES)
+        expect_kernel_took_every_solve(f"MDP-GapE batch path, {plans} plans", launches)
         config_launches = config_launches or launches
         report_plans(f"mdp_gape_plan_batch B={TREES} episodes={kw['episodes']} (+1) "
                      f"horizon={kw['horizon']} width={kw['width']} confidence={kw['confidence']}",
                      times, steps, "env-steps")
         print(f"  {launches['kl_bounds_pair_'] // plans} kl_bounds_pair_ launches per plan "
               f"(the dense form: {launches['kl_bound']}); {plans} plans: "
-              f"{newton_line()}, "
-              f"in blocks of {port_math.NEWTON_BLOCK}")
-        if read_back:  # the trips the data needs: the same plan, a read-back every trip
-            block, port_math.NEWTON_BLOCK = port_math.NEWTON_BLOCK, 1
-            try:
-                reset_newton()
-                ms = timed_plans(plan, 1)[0]
-            finally:
-                port_math.NEWTON_BLOCK = block
-            print(f"  one plan with a read-back every trip: {ms!r} ms, {newton_line()}")
+              f"{solve_line()}")
         if profiled_plan:
             results = []
             profiled = profile_plan(lambda: results.append(plan()), host_events=False)
@@ -1323,11 +1408,10 @@ def check_gbop_batch_path(dev) -> dict:
     timed, its KL launches counted and their device time read from the
     profiler, its value-iteration sweeps counted, its first 64 trees held
     against the CPU plan under the same noise; then the planner with three
-    next-state slots on 512 trees, one plan, with the Newton trips of its
-    constrained expectations as run (in blocks).
+    next-state slots on 512 trees, one plan, with the launches of its
+    constrained expectations' kernel.
     Returns the launches of the config's timed plans."""
     from rl_agents_torch.agents.tree_search.batch import gbop_stochastic_plan_batch
-    from rl_agents_torch.utils import math as port_math
     from rl_agents_torch.utils.noise import gumbel, uniform
 
     env, params, states = sailing_case(dev)
@@ -1389,15 +1473,15 @@ def check_gbop_batch_path(dev) -> dict:
     wide = lambda: gbop_stochastic_plan_batch(env, params, wide0, wide_obs, generator, device=dev,
                                               **GBOP_WIDE)
     reset_launches()
-    reset_newton()
     reset_sweeps()
     result = []
     ms = timed_plans(lambda: result.append(wide()), 1)[0]
-    expect_launches("stochastic GBOP, three slots, 1 plan", read_launches(), 0, 0,
-                    GBOP_KL_LAUNCHES)
+    launches = read_launches()
+    expect_launches("stochastic GBOP, three slots, 1 plan", launches, 0, 0, GBOP_KL_LAUNCHES)
+    expect_kernel_took_every_solve("stochastic GBOP, three slots, 1 plan", launches)
     print(f"gbop_stochastic_plan_batch B={GBOP_WIDE_TREES} width=3: {ms!r} ms per plan, "
-          f"{GBOP_WIDE_TREES * E * H / (ms / 1e3)!r} sample-steps/s; {newton_line()}, in blocks "
-          f"of {port_math.NEWTON_BLOCK}; {sweep_line(GBOP_WIDE_TREES)}")
+          f"{GBOP_WIDE_TREES * E * H / (ms / 1e3)!r} sample-steps/s; {solve_line()}; "
+          f"{sweep_line(GBOP_WIDE_TREES)}")
     # not profiled (tracing its ~650k kernels took two minutes of the budget)
     # and run once: the trips it needs were measured before (PERF.md section 5)
     action, graph = result[0]
@@ -1511,7 +1595,6 @@ def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan
     evaluation = Evaluation(env, agent, directory=REPO / "out" / "chip_smoke", num_episodes=1,
                             training=False, sim_seed=0)
     reset_launches()
-    reset_newton()
     reset_sweeps()
     started = time.time()
     evaluation.test()
@@ -1526,13 +1609,15 @@ def check_agent_path(dev, name: str, env_config, agent_config, kl_bound_per_plan
              else f"{planner.config['budget'] // env.action_space.n} expansions")
     print(f"{name} agent path: budget {planner.config['budget']} ({sizes}), "
           f"return {episode['total_reward']!r} in {episode['length']} steps, {seconds!r} s "
-          f"({seconds / episode['length']!r} s per step), launches {launches}; {newton_line()}; "
+          f"({seconds / episode['length']!r} s per step), launches {launches}; {solve_line()}; "
           f"{sweep_line(1)}")
     if not np.isfinite(episode["total_reward"]) or episode["length"] < 1:
         raise AssertionError(f"{name} agent path: invalid episode {episode}")
     expect_launches(f"{name} agent path", launches, kl_bound_per_plan * episode["length"],
                     kl_bound_indexed_per_plan * episode["length"],
                     kl_bounds_pair_per_plan * episode["length"], None if highway else 0)
+    if launches["max_expectation"]:
+        expect_kernel_took_every_solve(f"{name} agent path", launches)
     if highway:
         expect_kernel_took_every_transition(f"{name} agent path", launches)
     return launches
@@ -3185,6 +3270,7 @@ MG_PROFILED = 5  # episodes of the profiled plan
 GRID_GAPE = dict(num_actions=4, episodes=35, horizon=5, gamma=0.7, accuracy=0.0, confidence=1.0,
                  transition_threshold_coeff=0.1, width=2)
 GRID_GAPE_KL_LAUNCHES = GRID_GAPE["episodes"] + 1  # kl_bounds_pair_, one an episode
+GRID_GAPE_SOLVES = GRID_GAPE_KL_LAUNCHES * GRID_GAPE["horizon"]  # one a chance backup
 DUMMY_OLOP_EPISODES = 35  # DummyEnv/agents/kl-olop.json: budget 200 at gamma 0.7
 PENDULUM_OLOP_EPISODES = 15  # Pendulum/OLOPAgent.json: budget 200 at gamma 0.9
 LPV_STEPS = 40
@@ -3350,11 +3436,11 @@ def check_grid_and_dynamics_paths(dev) -> dict:
     plan = lambda: mdp_gape_plan_batch(env, params, states0, noise=noise, env_noise=env_noise,
                                        device=dev, **GRID_GAPE)
     reset_launches()
-    reset_newton()
     outs = []
     times = timed_plans(lambda: outs.append(plan()), 1)  # the kernels are warm from phase 8
     launches = read_launches()
-    newton = newton_line()
+    expect_kernel_took_every_solve("MDP-GapE on gridenv_stoch, 1 plan", launches)
+    solves = solve_line()
     got = fields(*outs[0])
     want = fields(*mdp_gape_plan_batch(env, env.default_params(CPU), states(CPU, CPU_SUBSET),
                                        noise=noise[:, :, :CPU_SUBSET].cpu(),
@@ -3364,11 +3450,12 @@ def check_grid_and_dynamics_paths(dev) -> dict:
                 ("actions", "used", "d_count", "d_children", "c_count", "c_children",
                  "c_n_children", "c_child_keys"),
                 ("d_mu_ucb", "d_mu_lcb", "d_value_upper", "d_value_lower"), CPU_SUBSET)
-    expect_launches("MDP-GapE on gridenv_stoch, 1 plan", launches, 0, 0, GRID_GAPE_KL_LAUNCHES)
+    expect_launches("MDP-GapE on gridenv_stoch, 1 plan", launches, 0, 0, GRID_GAPE_KL_LAUNCHES,
+                    max_expectation=GRID_GAPE_SOLVES)
     ms = report_plans(f"mdp_gape_plan_batch on gridenv_stoch B={TREES} "
                       f"episodes={GRID_GAPE['episodes']}+1 horizon={GRID_GAPE['horizon']}",
                       times, TREES * steps[0] * steps[1], "env-steps")
-    print(f"  {newton}")
+    print(f"  {solves}")
     result = {"mdp_gape_grid_batch_plans": {"launches": launches, "ms": ms}}
     result["mdp_gape_grid_agent"] = {"launches": check_agent_path(
         dev, "MDPGapEAgent (DummyEnv/agents/mdp-gape.json) on gridenv_stoch.json",
@@ -4171,6 +4258,7 @@ def main():
     from rl_agents_torch.agents.tree_search.common import allocation
     from rl_agents_torch.ops import highway_transition as transition_module
     from rl_agents_torch.ops import kl_bound as kl_module
+    from rl_agents_torch.ops import max_expectation as solve_module
 
     phase("1. card")
     card = card_line()
@@ -4180,7 +4268,8 @@ def main():
     dev = torch.device("cuda", 0)
 
     phase("2. build")
-    for name, module in (("kl_bound", kl_module), ("highway_transition", transition_module)):
+    for name, module in (("kl_bound", kl_module), ("highway_transition", transition_module),
+                         ("max_expectation", solve_module)):
         started = time.time()
         library = module.build()
         print(f"{name} built in {time.time() - started!r} s: {library.relative_to(REPO)}")
@@ -4191,7 +4280,7 @@ def main():
     phase("3. kernels against their plain versions")
     dense = check_kl_bound(dev)
     kernels = [dense, check_kl_bound_indexed(dev), check_kl_bounds_pair(dev, dense),
-               check_highway_transition(dev)]
+               check_highway_transition(dev), check_max_expectation(dev)]
 
     cartpole = json.loads((CONFIGS / "CartPoleEnv" / "env.json").read_text())
     cartpole["max_episode_steps"] = AGENT_MAX_STEPS

@@ -19,9 +19,9 @@ wait for the episode's end, as MDP-GapE's does: the graph merges nodes by
 observation, so a walk can come back to an entry within one episode, and the
 next step's optimistic choice reads ``sa_mu_ucb``. A tree whose sweeps
 converged freezes under a mask while the others go on; the host reads the
-number of trees still sweeping once per sweep, and the Newton solve of the
-constrained expectation (next-state width above 1) reads back once per block
-of trips.
+number of trees still sweeping once per sweep. The constrained expectation
+(next-state width above 1) is one kernel launch on a card; on the CPU its
+Newton solve reads back once per block of trips.
 """
 from __future__ import annotations
 

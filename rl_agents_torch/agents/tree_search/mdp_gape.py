@@ -15,8 +15,8 @@ rule fired freezes under a mask while the others go on, and the planner itself
 reads nothing back to the host inside the episode loop: every path is exactly
 ``horizon`` deep, so the backup is a fixed number of steps. Each chance
 backup's constrained solve (``utils/math.py::max_expectation_under_constraint``)
-replays one CUDA graph on a card, which reads nothing back either; on the CPU
-its Newton solve reads back once per block of trips.
+is one launch of a hand-written kernel on a card, which reads nothing back
+either; on the CPU its Newton solve reads back once per block of trips.
 
 The JAX package solves each visited node's KL bounds (upper and lower) at
 the step that visits it. Here one ``kl_bounds_pair_`` call solves both bounds
@@ -37,27 +37,29 @@ Like the JAX package's loop (``episode <= episodes``), a plan runs up to
 (``1 + (episodes + 1) * horizon`` nodes), so that no insert can be dropped.
 
 Where every draw is given (the Gumbel tie breaks, and the env's draws or an
-env that draws nothing) on a CUDA device, an episode's descent replays one
-CUDA graph (``_DescentGraph``, as ``mcts_fused.py`` replays an MCTS
-episode): the arenas and the buffers the descent reads are then static, one
-set for each signature, loaded and cleared at a plan's start, and the plan
-returns copies of them. The KL bounds, the backups and the root's choice
-run eagerly on them, each chance backup's solve a graph of its own.
+env that draws nothing) on a CUDA device, each episode replays one CUDA
+graph (``_EpisodeGraph``, as ``mcts_fused.py`` replays an MCTS episode):
+its descent, KL bounds, backups (each chance backup's solve one kernel
+launch) and stopping rule. The arenas and the buffers an episode reads are
+then static, one set for each signature, loaded and cleared at a plan's
+start, and the plan returns copies of them; the root's final choice runs
+eagerly on them.
 
-Traced (``trainer/profiling.py``), a plan is one ``planner.plan`` span; an
-episode is a ``gape.descend`` span (expansion, action choice, the
-next-state slot's lookup and insert, statistics, or the replay of all of
-it) holding one ``env.transition`` span a step where it runs eagerly, then
-``gape.bounds`` (the paired KL launch), ``gape.backup`` (the H decision and
-H chance backups, their Newton solves among them) and ``gape.root`` (the
-root's UGapE gaps and the stopping rule; at the end of the plan, the best
-arm).
+Traced (``trainer/profiling.py``), a plan is one ``planner.plan`` span. An
+eager episode is a ``gape.descend`` span (expansion, action choice, the
+next-state slot's lookup and insert, statistics) holding one
+``env.transition`` span a step, then ``gape.bounds`` (the paired KL
+launch), ``gape.backup`` (the H decision and H chance backups, their
+constrained solves among them) and ``gape.root`` (the root's UGapE gaps and
+the stopping rule); a replayed episode is one ``gape.episode`` span (the
+draws' copies and the replay). At the end of the plan a ``gape.root`` span
+picks the best arm.
 ``counters["gape.episodes"]`` and ``"gape.steps"`` count the episodes and
 their steps (episodes x H), and ``"host.syncs"`` the copies of host tables
 and scalars to the device at a plan's start, of draws handed over from
 another device or drawn on a generator's, and the Newton solves' read-backs
 where they run eagerly (``utils/math.py::newton_iteration``);
-``"gape.descent_graph.captures"`` and ``".replays"`` count the descent's
+``"gape.episode_graph.captures"`` and ``".replays"`` count the episode's
 captures and replays.
 """
 from __future__ import annotations
@@ -180,13 +182,15 @@ def _plan(env, params, states0, generator, num_actions, episodes, horizon, gamma
     if env_noise is not None:
         env_noise = noise_tensor(env_noise, device)
 
-    # a plan whose draws are all given replays its episodes' descents from one
-    # CUDA graph, on static buffers loaded here; else everything runs eagerly
+    # a plan whose draws are all given replays each episode from one CUDA
+    # graph, on static buffers loaded here; else everything runs eagerly
     replayed = None
     if episode_graph_declines(env, device, noise, env_noise, (*params, *states0)) is None:
-        replayed = _descent_graph(env, params, states0, noise, env_noise, A, W, H, E)
-        replayed.start(params, states0, upper_table)
+        replayed = _episode_graph(env, params, states0, noise, env_noise, A, W, H, E, accuracy)
+        replayed.start(params, states0, upper_table, gamma, threshold_table, transition_threshold)
         params, states0, upper_table = replayed.params, replayed.states0, replayed.upper_table
+        gamma, threshold_table = replayed.gamma, replayed.threshold_table
+        transition_threshold = replayed.transition_threshold
         tree, rows, offsets, slots_w = replayed.tree, replayed.rows, replayed.offsets, replayed.slots
         active, episodes_used, root, path = (replayed.active, replayed.episodes_used,
                                              replayed.root, replayed.path)
@@ -291,7 +295,7 @@ def _plan(env, params, states0, generator, num_actions, episodes, horizon, gamma
         delta = pick(up, challenger) - pick(lo, best)
         return selected, best, challenger, delta
 
-    def descend(g, env_draws, spanned=True):
+    def descend(g, env_draws, spanned):
         """An episode's path from the root, ``horizon`` steps, into ``path``:
         Gumbel tie breaks ``g`` ``[H, B, A]``, the env's draws ``env_draws``
         ``[H, B, ...]`` or None. A capture records no ``env.transition``
@@ -344,40 +348,48 @@ def _plan(env, params, states0, generator, num_actions, episodes, horizon, gamma
             path[h] = child
             node, state = child, out.state
 
-    for episode in range(E + 1):
-        counters["gape.episodes"] += 1
-        env_draws = None if env_noise is None else env_noise[episode]
-        with span("gape.descend"):
-            if replayed is not None:
-                replayed.replay(noise[episode], env_draws, descend)
-            else:
-                if noise is not None:
-                    g = noise[episode]
-                else:  # drawn on the generator's device, then copied to the planner's
-                    g = gumbel((H, B, A), generator, device)
-                    counters["host.syncs"] += generator.device.type != device.type
-                descend(g, env_draws)
-        counters["gape.steps"] += H
+    def run_episode(g, env_draws, spanned=True):
+        """One episode: the descent (``g`` None draws its tie breaks from the
+        generator), the path's KL bounds, the backup to the root and the
+        root's stopping rule. A capture records no span (``spanned``
+        False)."""
+        spans = span if spanned else lambda name: contextlib.nullcontext()
+        with spans("gape.descend"):
+            if g is None:  # drawn on the generator's device, then copied to the planner's
+                g = gumbel((H, B, A), generator, device)
+                counters["host.syncs"] += generator.device.type != device.type
+            descend(g, env_draws, spanned)
 
         # the KL bounds of the path's nodes (mdp_gape.py:200-212), both in one
         # call, deferred to here: see the module docstring
-        with span("gape.bounds"):
+        with spans("gape.bounds"):
             kl_bounds_pair_(d_mu_ucb, d_mu_lcb, d_cum_reward, d_count, path, threshold_table,
                             active)
 
         # backup to root (mdp_gape.py:214-226, 288-305): the leaf lies at
         # depth H, so H chance backups between H + 1 decision backups
-        with span("gape.backup"):
+        with spans("gape.backup"):
             for h in reversed(range(H)):
                 backup_decision(path[h], active)
                 chance = d_parent[rows, path[h]].clamp(min=0)
                 backup_chance(chance, active)
             backup_decision(root, active)
 
-        with span("gape.root"):
+        with spans("gape.root"):
             delta = root_gaps()[3]
-            episodes_used += active
-            active &= ~(delta < accuracy)
+            episodes_used.add_(active)
+            active.logical_and_(~(delta < accuracy))
+
+    for episode in range(E + 1):
+        counters["gape.episodes"] += 1
+        g = None if noise is None else noise[episode]
+        env_draws = None if env_noise is None else env_noise[episode]
+        if replayed is not None:
+            with span("gape.episode"):
+                replayed.replay(g, env_draws, run_episode)
+        else:
+            run_episode(g, env_draws)
+        counters["gape.steps"] += H
 
     with span("gape.root"):
         best = root_gaps()[1]
@@ -430,17 +442,19 @@ def _clear(tree: GapETree, upper) -> None:
         x.fill_(upper if fill is None else fill)
 
 
-class _DescentGraph:
-    """An MDP-GapE episode's descent (``descend`` in ``_plan``) of one
+class _EpisodeGraph:
+    """An MDP-GapE episode (``run_episode`` in ``_plan``: the descent, the
+    path's KL bounds, the backup and the root's stopping rule) of one
     signature captured as a CUDA graph, and the static buffers it reads and
-    writes: the params, the start states, the value bounds' table, the
-    arenas (sized for ``capacity`` episodes: a plan of fewer uses their
-    first nodes), the index vectors, the active mask, the episodes run, the
-    root, the path, and one episode's draws. ``start`` loads a plan's inputs
-    and clears the arenas; ``replay`` copies in an episode's draws and
-    replays the descent, capturing it first in the first plan. Every copy is
-    from the device. The backups, the KL bounds and the root's choice run
-    eagerly on the same buffers."""
+    writes: the params, the start states, the value bounds' table, gamma,
+    the reward thresholds' table (``capacity + 2`` counts; a plan of fewer
+    episodes fills its first), the transition threshold, the arenas (sized
+    for ``capacity`` episodes: a plan of fewer uses their first nodes), the
+    index vectors, the active mask, the episodes run, the root, the path,
+    and one episode's draws. ``start`` loads a plan's inputs and clears the
+    arenas; ``replay`` copies in an episode's draws and replays the episode,
+    capturing it first in the first plan. Every copy is from the device.
+    The root's final choice runs eagerly on the same buffers."""
 
     def __init__(self, env, params, states0, noise, env_noise, num_actions: int, width: int,
                  horizon: int, capacity: int):
@@ -452,6 +466,9 @@ class _DescentGraph:
         self.params = type(params)(*map(like, params))
         self.states0 = type(states0)(*map(like, states0))
         self.upper_table = torch.empty(H + 1, dtype=torch.float32, device=device)
+        self.gamma = torch.empty((), dtype=torch.float32, device=device)
+        self.threshold_table = torch.zeros(capacity + 2, dtype=torch.float32, device=device)
+        self.transition_threshold = torch.empty((), dtype=torch.float32, device=device)
         self.tree = _arena(B, _decision_nodes(capacity, H), A, W, device)
         self.rows = torch.arange(B, device=device)
         self.offsets = torch.arange(A, device=device)
@@ -464,10 +481,13 @@ class _DescentGraph:
         self.env_draws = None if env_noise is None else like(env_noise[0])
         self.graph = self.counted = None
 
-    def start(self, params, states0, upper_table):
+    def start(self, params, states0, upper_table, gamma, threshold_table, transition_threshold):
         for static, x in zip((*self.params, *self.states0), (*params, *states0)):
             static.copy_(x)
         self.upper_table.copy_(upper_table)
+        self.gamma.copy_(gamma)
+        self.threshold_table[:threshold_table.numel()].copy_(threshold_table)
+        self.transition_threshold.copy_(transition_threshold)
         self._clear()
 
     def _clear(self):
@@ -475,23 +495,23 @@ class _DescentGraph:
         self.active.fill_(True)
         self.episodes_used.zero_()
 
-    def replay(self, g, env_draws, descend):
+    def replay(self, g, env_draws, run_episode):
         self.g.copy_(g)
         if env_draws is not None:
             self.env_draws.copy_(env_draws)
         if self.graph is None:
-            self._capture(descend)
+            self._capture(run_episode)
         self.graph.replay()
         counters.update(self.counted)
-        counters["gape.descent_graph.replays"] += 1
+        counters["gape.episode_graph.replays"] += 1
 
-    def _capture(self, descend):
-        """Capture the descent on the current device, after one run on a side
+    def _capture(self, run_episode):
+        """Capture the episode on the current device, after one run on a side
         stream (which builds and loads what it launches), from the inputs
         loaded at a plan's first episode; then clear the arenas the run
         wrote. The run and the capture count only as one capture, and
-        ``counted`` keeps what the captured descent counted."""
-        run = lambda: descend(self.g, self.env_draws, spanned=False)
+        ``counted`` keeps what the captured episode counted."""
+        run = lambda: run_episode(self.g, self.env_draws, spanned=False)
         before = counters.copy()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -504,7 +524,7 @@ class _DescentGraph:
             run()
         self.graph, self.counted = graph, counters - warm
         counters.subtract(counters - before)
-        counters["gape.descent_graph.captures"] += 1
+        counters["gape.episode_graph.captures"] += 1
         self._clear()
 
 
@@ -513,20 +533,22 @@ _GRAPHS_KEPT = 4
 _graphs: OrderedDict = OrderedDict()
 
 
-def _descent_graph(env, params, states0, noise, env_noise, num_actions: int, width: int,
-                   horizon: int, episodes: int) -> _DescentGraph:
-    """The captured descent of this call's signature: the env (by identity),
+def _episode_graph(env, params, states0, noise, env_noise, num_actions: int, width: int,
+                   horizon: int, episodes: int, accuracy: float) -> _EpisodeGraph:
+    """The captured episode of this call's signature: the env (by identity),
     the params' and the state's types, shapes and dtypes, the device, the
-    action count, the slot count, the horizon and the draws' shapes. A new
-    one, not yet captured, where none is kept or the kept one's arenas hold
-    fewer than ``episodes``."""
+    action count, the slot count, the horizon, the draws' shapes and the
+    accuracy (the stopping rule's constant). A new one, not yet captured,
+    where none is kept or the kept one's arenas hold fewer than
+    ``episodes``."""
     key = (id(env), type(params), tuple((x.shape, x.dtype) for x in params), type(states0),
            tuple((x.shape, x.dtype) for x in states0), states0[0].device, num_actions, width,
            horizon, noise.shape[1:], None if env_noise is None else (env_noise.shape[1:],
-                                                                      env_noise.dtype))
+                                                                      env_noise.dtype),
+           float(accuracy))
     kept = _graphs.pop(key, None)
     if kept is None or kept.capacity < episodes:
-        kept = _DescentGraph(env, params, states0, noise, env_noise, num_actions, width, horizon,
+        kept = _EpisodeGraph(env, params, states0, noise, env_noise, num_actions, width, horizon,
                              episodes)
     _graphs[key] = kept
     while len(_graphs) > _GRAPHS_KEPT:

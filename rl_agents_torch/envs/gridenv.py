@@ -8,6 +8,7 @@ LineEnv's coin ``[B]`` in {0, 1}.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -22,6 +23,15 @@ REWARD_RADIUS = 5.0
 
 # displacement per action: right, left, up, down, then 4 diagonals
 _GRID_MOVES = ((1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (1, -1), (-1, 1), (-1, -1))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_constants(device: torch.device):
+    """``_GRID_MOVES`` and ``REWARD_CENTER`` as tensors on ``device``, made
+    once: a step then copies nothing from the host, so a CUDA graph can
+    capture it (MDP-GapE's episode graph does, on ``gridenv_stoch``)."""
+    return (torch.tensor(_GRID_MOVES, dtype=torch.float32, device=device),
+            torch.tensor(REWARD_CENTER, device=device))
 
 
 def null_uniform() -> float:
@@ -77,10 +87,9 @@ class GridEnv(FunctionalEnv):
         # with probability ``stochasticity`` the action is dropped (no move),
         # the reference's action = -1 branch (gridenv.py:27-29)
         drop = u < params.stochasticity
-        moves = torch.tensor(_GRID_MOVES, dtype=torch.float32, device=device)[
-            jax_index(action, len(_GRID_MOVES))]
-        x = state.x + torch.where(drop[:, None], 0.0, moves)
-        gap = torch.tensor(REWARD_CENTER, device=device) - x
+        moves, center = _grid_constants(device)
+        x = state.x + torch.where(drop[:, None], 0.0, moves[jax_index(action, len(_GRID_MOVES))])
+        gap = center - x
         # the squared distance is a multiply and one fused multiply-add; the
         # division by the constant radius^2 is a multiply by its reciprocal,
         # fused into the subtraction

@@ -8,7 +8,8 @@ KL-UCB solve itself lives in ``rl_agents_torch/ops/kl_bound.py``;
 ``kl_upper_bound`` is its name here. Solvers that loop until convergence in
 the JAX package run masked trips over the whole batch instead: bisection a
 fixed number of them, the Newton solve in blocks with one read-back between
-blocks (or, where a CUDA graph captures it, every trip and no read-back).
+blocks. On a CUDA device the constrained-KL expectation is one launch of the
+hand-written kernel of ``rl_agents_torch/ops/max_expectation.py`` instead.
 
 ``torch.where`` evaluates both branches, so the guarded logs below keep their
 inner ``where``s: without them the kept branch would pick up ``nan``/``inf``
@@ -16,7 +17,6 @@ from ``log(0)`` through the arithmetic of the dropped one.
 """
 from __future__ import annotations
 
-import collections
 import itertools
 from typing import List
 
@@ -221,8 +221,7 @@ def kl_bounds_arena(sums, counts, thresholds, lower: bool = False, eps: float = 
 
 
 def newton_iteration(f, df, eps: float, x0=None, a=-torch.inf, b=torch.inf,
-                     max_iterations: int = NEWTON_MAX_ITERATIONS,
-                     read_back: bool = True) -> torch.Tensor:
+                     max_iterations: int = NEWTON_MAX_ITERATIONS) -> torch.Tensor:
     """Guarded Newton solve of ``f(x) = 0`` on ``[a, b]`` (reference
     utils.py:150-203), elementwise over a batch: ``f`` and ``df`` map a tensor
     of iterates to a tensor of the same shape.
@@ -233,9 +232,7 @@ def newton_iteration(f, df, eps: float, x0=None, a=-torch.inf, b=torch.inf,
     ``NEWTON_BLOCK`` with one read-back between blocks, which ends the loop
     once no element is active: no trip waits for the host, and a batch whose
     slowest element needs a handful of trips does not pay for
-    ``max_iterations``. With ``read_back`` False every trip runs and nothing
-    is read back, which gives the same result: a solve that a CUDA graph
-    captures. ``counters["newton_iteration.calls"]`` and
+    ``max_iterations``. ``counters["newton_iteration.calls"]`` and
     ``"newton_iteration.trips"`` count the solves and the trips they ran;
     ``"host.syncs"`` counts each read-back, and each bound given as a host
     number (made on the host, then copied to the iterates' device)."""
@@ -249,7 +246,7 @@ def newton_iteration(f, df, eps: float, x0=None, a=-torch.inf, b=torch.inf,
     counters["newton_iteration.calls"] += 1
     for trip in range(max_iterations):
         active = torch.abs(x - x_next) > eps
-        if read_back and trip and trip % NEWTON_BLOCK == 0:
+        if trip and trip % NEWTON_BLOCK == 0:
             counters["host.syncs"] += 1
             if not bool(active.any()):
                 break
@@ -288,15 +285,17 @@ def max_expectation_under_constraint(f, q, c, eps: float = 1e-2) -> torch.Tensor
     for distributions on the last axis: ``f`` and ``q`` are ``[..., n]`` and
     ``c`` is ``[...]``, one problem per leading index.
 
-    All data-dependent branches are masks and the Newton solve is
-    ``newton_iteration``'s masked trips, so a batch of problems is one tensor
-    program. Eagerly its only read-back is that solve's, once per block of
-    trips. On a CUDA device, where ``f`` and ``q`` have one shape and ``c`` is
-    ``f``'s without the last axis, the batch replays one CUDA graph of the
-    whole solve at every Newton trip (``_SolveGraph``): the same bits, one
-    replay in place of the solve's launches (some 50 a Newton trip), and no
-    read-back, so the host does not wait for the card inside a planner's
-    backup."""
+    The inputs are cast to float32 (a number or list onto ``f``'s device).
+    Where one of them is then a CUDA tensor, the solve is one launch of the
+    CUDA kernel ``ops/max_expectation.py::launch`` (tensors on one card, or
+    ``ValueError``): the bits of the plain version, each problem leaving its
+    Newton loop when it converges, no read-back. Elsewhere the plain version
+    ``_max_expectation`` runs it: all data-dependent branches are masks and
+    the Newton solve is ``newton_iteration``'s masked trips, so a batch of
+    problems is one tensor program whose only read-back is that solve's,
+    once per block of trips.
+    ``counters["max_expectation_under_constraint.eager_calls"]`` counts the
+    plain version's calls, ``".kernel_launches"`` the kernel's."""
     f = _f32(f)
     q = _f32(q, f)
     c = _f32(c, f)
@@ -306,14 +305,17 @@ def max_expectation_under_constraint(f, q, c, eps: float = 1e-2) -> torch.Tensor
         # KL(q||p) = 0 <= c always, so the solver is the identity; this static
         # case skips the Newton trips altogether
         return torch.ones_like(q)
-    if f.device.type != "cuda" or f.shape != q.shape or c.shape != f.shape[:-1]:
-        return _max_expectation(f, q, c, eps)
-    return _solve_graph(f, c, eps).solve(f, q, c)
+    if f.is_cuda or q.is_cuda or c.is_cuda:
+        from rl_agents_torch.ops.max_expectation import launch  # that module imports this one
+
+        return launch(f, q, c, eps)
+    counters["max_expectation_under_constraint.eager_calls"] += 1
+    return _max_expectation(f, q, c, eps)
 
 
-def _max_expectation(f, q, c, eps: float, read_back: bool = True) -> torch.Tensor:
+def _max_expectation(f, q, c, eps: float) -> torch.Tensor:
     """The body of ``max_expectation_under_constraint`` for ``n`` > 1 atoms,
-    on float32 tensors; ``read_back`` is ``newton_iteration``'s."""
+    on float32 tensors: the plain version of the CUDA kernel."""
     n = q.shape[-1]
     all_zero = (q == 0).all(dim=-1, keepdim=True)
     q = torch.where(all_zero, torch.ones_like(q) / n, q)
@@ -357,7 +359,7 @@ def _max_expectation(f, q, c, eps: float, read_back: bool = True) -> torch.Tenso
 
     # Otherwise: solve theta(lambda) = 0 for lambda >= f_star.
     lam_solved = newton_iteration(theta, d_theta, eps, x0=f_star + 1.0, a=f_star,
-                                  b=torch.full_like(f_star, torch.inf), read_back=read_back)
+                                  b=torch.full_like(f_star, torch.inf))
     lam = torch.where(case_a, f_star, lam_solved)
 
     safe = safe_diff(lam)
@@ -372,61 +374,3 @@ def _max_expectation(f, q, c, eps: float, read_back: bool = True) -> torch.Tenso
                          torch.where(plus, beta * q_p / safe, 0.0))
     p_star = p_plus + p_zero
     return torch.where((constant_f & ~case_a)[..., None], q, p_star)
-
-
-_SOLVE_GRAPHS_KEPT = 8  # captured shapes of max_expectation_under_constraint kept, newest last
-_solve_graphs: "collections.OrderedDict[tuple, _SolveGraph]" = collections.OrderedDict()
-
-
-def _solve_graph(f, c, eps: float) -> "_SolveGraph":
-    """The captured solve of this device, shape and ``eps``; made (and captured
-    at its first solve) on a miss, the oldest dropped past ``_SOLVE_GRAPHS_KEPT``."""
-    key = (f.device, tuple(f.shape), float(eps))
-    graph = _solve_graphs.pop(key, None) or _SolveGraph(f, c, eps)
-    _solve_graphs[key] = graph
-    while len(_solve_graphs) > _SOLVE_GRAPHS_KEPT:
-        _solve_graphs.popitem(last=False)
-    return graph
-
-
-class _SolveGraph:
-    """One shape of ``max_expectation_under_constraint`` captured as a CUDA
-    graph: static inputs ``f``, ``q``, ``c``, the solve with every Newton trip
-    (``read_back=False``) and its output. ``solve`` copies a batch in, replays
-    the graph, capturing it first at its first solve, and returns a copy of
-    the output. Every copy is from the device; the counters gain at each
-    replay what the captured solve counted."""
-
-    def __init__(self, f, c, eps: float):
-        self.f, self.q, self.c = torch.empty_like(f), torch.empty_like(f), torch.empty_like(c)
-        self.eps = eps
-        self.graph = self.p = self.counted = None
-
-    def solve(self, f, q, c) -> torch.Tensor:
-        self.f.copy_(f)
-        self.q.copy_(q)
-        self.c.copy_(c)
-        if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        counters.update(self.counted)
-        return self.p.clone()
-
-    def _capture(self):
-        """One run on a side stream (which loads what it launches), then the
-        capture, from the inputs loaded. The run and the capture count only
-        as one capture, and ``counted`` keeps what the captured solve counted."""
-        body = lambda: _max_expectation(self.f, self.q, self.c, self.eps, read_back=False)
-        before = counters.copy()
-        side = torch.cuda.Stream(self.f.device)
-        side.wait_stream(torch.cuda.current_stream(self.f.device))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(self.f.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        warm = counters.copy()
-        with torch.cuda.graph(graph):
-            self.p = body()
-        self.graph, self.counted = graph, counters - warm
-        counters.subtract(counters - before)
-        counters["max_expectation_under_constraint.captures"] += 1

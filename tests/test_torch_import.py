@@ -88,7 +88,8 @@ def test_the_port_has_every_module_of_the_jax_package():
     """The module lists differ only by design: no ``ops/onehot.py`` (direct
     indexing), ``ops/pallas_kl.py`` is ``ops/kl_bound.py``, and the port's
     own additions (among them the highway transition's kernel, which XLA
-    fuses in the JAX package, and the build both kernels share)."""
+    fuses in the JAX package, the constrained solve's kernel, which XLA
+    compiles there, and the build the kernels share)."""
     def modules(package):
         return {p.relative_to(REPO / package).as_posix()
                 for p in (REPO / package).rglob("*.py")}
@@ -97,7 +98,8 @@ def test_the_port_has_every_module_of_the_jax_package():
     assert jax_modules - port_modules == {"ops/onehot.py", "ops/pallas_kl.py"}
     assert port_modules - jax_modules == {
         "convert.py", "experiments.py", "utils/device.py", "utils/noise.py", "ops/kl_bound.py",
-        "ops/highway_transition.py", "ops/cuda_build.py", "scripts/__init__.py", "scripts/planners_evaluation.py",
+        "ops/highway_transition.py", "ops/max_expectation.py", "ops/cuda_build.py",
+        "scripts/__init__.py", "scripts/planners_evaluation.py",
         "scripts/planners_robust_evaluation.py", "scripts/planners_visualization.py"}
 
 

@@ -237,6 +237,22 @@ def test_max_expectation_under_constraint_matches(width, eps):
     np.testing.assert_allclose(single, want[0], atol=ATOL)
 
 
+@pytest.mark.parametrize("width", [2, 3])
+def test_the_plain_solve_is_counted_and_matches(width):
+    """On the CPU every solve of more than one atom runs the plain version,
+    counted as an eager call and never as a kernel launch, and still gives
+    the JAX package's solution."""
+    f, q, c = _constrained_cases(width, seed=10 + width)
+    before = counters.copy()
+    got = tm.max_expectation_under_constraint(_t(f), _t(q), _t(c), eps=1e-3).numpy()
+    counted = counters - before
+    assert counted["max_expectation_under_constraint.eager_calls"] == 1
+    assert counted["max_expectation_under_constraint.kernel_launches"] == 0
+    want = np.asarray(jax.vmap(lambda f, q, c: jm.max_expectation_under_constraint(f, q, c, 1e-3))(
+        jnp.asarray(f), jnp.asarray(q), jnp.asarray(c)))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
 def test_max_expectation_under_constraint_golden():
     """tests/agents/test_utils.py:71-108: the optimum dominates q and spends
     the KL budget."""

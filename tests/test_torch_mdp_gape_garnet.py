@@ -19,9 +19,10 @@ changes no bit.
 
 The tests marked ``card`` need a CUDA card (they skip without one): a
 plan's ``host.syncs`` equal the synchronisations that
-``torch.cuda.set_sync_debug_mode`` reports; the constrained solve that a
-CUDA graph replays gives the eager solve's bits and counts every trip; and
-plans in a row on the card, their descents replayed, equal the reference's. Run them on the card with
+``torch.cuda.set_sync_debug_mode`` reports, and plans in a row on the
+card, their episodes replayed and their chance backups solved by the
+constrained solve's kernel (``tests/test_torch_max_expectation_kernel.py``
+holds it to the eager solve), equal the reference's. Run them on the card with
 ``python -m pytest tests/test_torch_mdp_gape_garnet.py -m card -s``."""
 import math
 import pathlib
@@ -340,41 +341,14 @@ def test_host_syncs_equal_the_synchronisations_cuda_reports():
 
 
 @pytest.mark.card
-def test_the_captured_solve_gives_the_eager_solves_bits():
-    """The chance backups' solve at the cell's shape ``[2 x 4096, 2]``, on
-    problems drawn as a plan makes them (some of them constant or nearly so):
-    the replayed graph equals the eager solve bit for bit, is captured once
-    for its shape, and counts every Newton trip at each replay."""
-    dev = _card()
-    gen = torch.Generator(device=dev).manual_seed(2**33 + 7)
-    rows = 2 * 4096
-    f = torch.rand((rows, W), generator=gen, device=dev) * 3.0
-    f[::7, 1] = f[::7, 0] + 3e-4  # nearly constant: the solves that run every trip
-    f[::11, 1] = f[::11, 0]
-    counts = torch.randint(0, 5, (rows, W), generator=gen, device=dev)
-    q = counts.float() / counts.sum(dim=1, keepdim=True).clamp(min=1).float()
-    c = 0.1 * math.log(20) / counts.sum(dim=1).clamp(min=1).float()
-    want = tm._max_expectation(f, q, c, 1e-2)
-    tm._solve_graphs.clear()
-    before = counters.copy()
-    for _ in range(3):
-        got = tm.max_expectation_under_constraint(f, q, c)
-        assert torch.equal(got, want)
-    counted = counters - before
-    assert counted["max_expectation_under_constraint.captures"] == 1
-    assert counted["newton_iteration.calls"] == 3
-    assert counted["newton_iteration.trips"] == 3 * tm.NEWTON_MAX_ITERATIONS
-    assert counted["host.syncs"] == 0
-
-
-@pytest.mark.card
 def test_plans_on_the_card_are_the_references():
     """The benchmark's cell cut to 64 trees, on the card, three plans in a
     row from other start states and draws (the last of 4 episodes, which
     the arenas sized for 20 hold): each plan's best actions, episodes and
-    every arena field equal the reference's, the descent is captured once
+    every arena field equal the reference's, the episode is captured once
     and replayed at every episode, and the first plan's output is not
-    touched by the later ones."""
+    touched by the later ones; every chance backup's solve is one launch
+    of the solve's kernel."""
     from rl_agents_torch.agents.tree_search import mdp_gape
 
     dev = _card()
@@ -396,5 +370,8 @@ def test_plans_on_the_card_are_the_references():
     for field, value in kept[1].items():
         assert torch.equal(getattr(kept[0], field), value), field
     counted = counters - before
-    assert counted["gape.descent_graph.captures"] == 1
-    assert counted["gape.descent_graph.replays"] == 21 + 21 + 5
+    assert counted["gape.episode_graph.captures"] == 1
+    assert counted["gape.episode_graph.replays"] == 21 + 21 + 5
+    # every chance backup's solve (H a run) a launch of the solve's kernel
+    assert counted["max_expectation_under_constraint.kernel_launches"] == (21 + 21 + 5) * 5
+    assert counted["max_expectation_under_constraint.eager_calls"] == 0
