@@ -55,12 +55,13 @@ non-zero without its final line:
 10. the stochastic GBOP batch path: ``gbop_stochastic_plan_batch`` on the
     Sailing domain (``SailingEnv/env.json``, size 8), 4096 trees from random
     starts at the sizes of ``SailingEnv/agents/gbop.json`` (3 episodes x
-    horizon 55, one next-state slot; one timed plan), one ``kl_bounds_pair_``
-    launch per (episode, depth) step, 165 a plan, its value-iteration sweeps
-    counted and
-    its first 64 trees checked against the CPU plan under the same noise; then
-    the same planner with three next-state slots on 512 trees, one plan, the
-    launches of its constrained expectations' kernel counted;
+    horizon 55, one next-state slot; one timed plan) with every draw given,
+    so each episode replays one CUDA graph (3 replays a plan, asserted, after
+    the capturing plan), one ``kl_bounds_pair_`` launch per (episode, depth)
+    step, 165 a plan, its value-iteration sweeps counted and its first 64
+    trees checked against the CPU plan under the same noise; then the same
+    planner with three next-state slots on 512 trees, one eager plan from a
+    generator, the launches of its constrained expectations' kernel counted;
 11. the GBOP-D batch path: ``gbop_plan_batch`` on Sailing, 4096 trees, 25
     expansions (``gbop-d.json``; one timed plan), its Bellman sweeps counted;
     no kernel;
@@ -1404,52 +1405,67 @@ def graph_fields(graph, **extra) -> dict:
 
 
 def check_gbop_batch_path(dev) -> dict:
-    """``gbop_stochastic_plan_batch`` on Sailing at the sizes of ``gbop.json``:
-    timed, its KL launches counted and their device time read from the
-    profiler, its value-iteration sweeps counted, its first 64 trees held
-    against the CPU plan under the same noise; then the planner with three
-    next-state slots on 512 trees, one plan, with the launches of its
+    """``gbop_stochastic_plan_batch`` on Sailing at the sizes of ``gbop.json``
+    with every draw given, so that each episode replays one CUDA graph: its
+    first plan captures, then it is timed, its replays (3 a plan) and KL
+    launches (165) counted and their device time read from the profiler, its
+    value-iteration sweeps counted, its first 64 trees held against the CPU
+    plan under the same noise; then the planner with three next-state slots
+    on 512 trees, one eager plan from a generator, with the launches of its
     constrained expectations' kernel.
     Returns the launches of the config's timed plans."""
     from rl_agents_torch.agents.tree_search.batch import gbop_stochastic_plan_batch
+    from rl_agents_torch.trainer.profiling import counters
     from rl_agents_torch.utils.noise import gumbel, uniform
 
     env, params, states = sailing_case(dev)
     E, H, A = GBOP["episodes"], GBOP["horizon"], GBOP["num_actions"]
     states0 = states(dev, TREES)
     obs0 = env.observe(params, states0)
-    generator = torch.Generator(device=dev).manual_seed(0)
-    plan = lambda: gbop_stochastic_plan_batch(env, params, states0, obs0, generator, device=dev,
-                                              **GBOP)
-    # no warm-up plan: phase 3 ran this planner at these shapes already
-    reset_launches()
-    reset_sweeps()
-    times = timed_plans(plan, SAILING_PLANS)
-    launches = read_launches()
-    expect_launches(f"stochastic GBOP batch path, {SAILING_PLANS} plans", launches, 0, 0,
-                    SAILING_PLANS * GBOP_KL_LAUNCHES)
-    report_plans(f"gbop_stochastic_plan_batch B={TREES} episodes={E} horizon={H} "
-                 f"width={GBOP['width']}", times, TREES * E * H, "sample-steps")
-    print(f"  {launches['kl_bounds_pair_'] // SAILING_PLANS} kl_bounds_pair_ launches per plan "
-          f"(the dense form: {launches['kl_bound']}); "
-          f"{SAILING_PLANS} plans: {sweep_line(TREES)}")
-    # one episode of the three profiled: a whole plan's trace (~51k kernels)
-    # lost half its records on an H100 (PERF.md §4)
-    short = lambda: gbop_stochastic_plan_batch(env, params, states0, obs0, generator, device=dev,
-                                               **dict(GBOP, episodes=1))
-    profiled = profile_plan(short, host_events=False)
-    if profiled["kl_launches"] != GBOP_KL_LAUNCHES // E:
-        raise AssertionError(f"the profiler saw {profiled['kl_launches']} KL kernels in a "
-                             f"one-episode plan, expected {GBOP_KL_LAUNCHES // E}")
-    print(f"  the profiled plan ran 1 of {E} episodes")
-
     # the same noise on both devices: drawn once on the CPU
     cpu = torch.device("cpu")
     host = torch.Generator().manual_seed(7)
     noise = (gumbel((E, H, TREES, A), host, "cpu"), gumbel((TREES, A), host, "cpu"))
     env_noise = uniform((E, H, TREES), host, "cpu")
-    action, graph = gbop_stochastic_plan_batch(env, params, states0, obs0, noise=noise,
-                                               env_noise=env_noise, device=dev, **GBOP)
+    on_card = (tuple(n.to(dev) for n in noise), env_noise.to(dev))
+
+    def plan(episodes=E):
+        return gbop_stochastic_plan_batch(
+            env, params, states0, obs0, noise=(on_card[0][0][:episodes], on_card[0][1]),
+            env_noise=on_card[1][:episodes], device=dev, **dict(GBOP, episodes=episodes))
+
+    captures = counters["gbop.episode_graph.captures"]
+    result = plan()  # the signature's first plan captures its episode
+    if counters["gbop.episode_graph.captures"] != captures + 1:
+        raise AssertionError("the stochastic GBOP batch plan captured no episode graph")
+    reset_launches()
+    reset_sweeps()
+    replays = counters["gbop.episode_graph.replays"]
+    times = timed_plans(plan, SAILING_PLANS)
+    launches = read_launches()
+    expect_launches(f"stochastic GBOP batch path, {SAILING_PLANS} plans", launches, 0, 0,
+                    SAILING_PLANS * GBOP_KL_LAUNCHES)
+    replayed = counters["gbop.episode_graph.replays"] - replays
+    if replayed != SAILING_PLANS * E:
+        raise AssertionError(f"{SAILING_PLANS} stochastic GBOP plans replayed {replayed} "
+                             f"episode graphs, expected {SAILING_PLANS * E}")
+    report_plans(f"gbop_stochastic_plan_batch B={TREES} episodes={E} horizon={H} "
+                 f"width={GBOP['width']}", times, TREES * E * H, "sample-steps")
+    print(f"  {launches['kl_bounds_pair_'] // SAILING_PLANS} kl_bounds_pair_ launches and "
+          f"{replayed // SAILING_PLANS} episode replays per plan "
+          f"(the dense form: {launches['kl_bound']}); "
+          f"{SAILING_PLANS} plans: {sweep_line(TREES)}")
+    # one episode of the three profiled: a whole plan's trace (~51k kernels)
+    # lost half its records on an H100 (PERF.md section 4); its signature
+    # captures first, outside the profile
+    plan(1)
+    profiled = profile_plan(lambda: plan(1), host_events=False)
+    if profiled["kl_launches"] != GBOP_KL_LAUNCHES // E:
+        raise AssertionError(f"the profiler saw {profiled['kl_launches']} KL kernels in a "
+                             f"one-episode plan, expected {GBOP_KL_LAUNCHES // E}")
+    print(f"  the profiled plan ran 1 of {E} episodes")
+
+    action, graph = result
     if not ((action >= 0) & (action < A)).all() or not torch.isfinite(graph.value_upper).all() \
             or not (graph.value_lower <= graph.value_upper + KL_TOLERANCE).all() \
             or not (graph.n_count.sum(dim=1) == E * H).all() \
@@ -1470,6 +1486,7 @@ def check_gbop_batch_path(dev) -> dict:
     print(f"-- three next-state slots, {GBOP_WIDE_TREES} trees")
     wide0 = states(dev, GBOP_WIDE_TREES)
     wide_obs = env.observe(params, wide0)
+    generator = torch.Generator(device=dev).manual_seed(0)
     wide = lambda: gbop_stochastic_plan_batch(env, params, wide0, wide_obs, generator, device=dev,
                                               **GBOP_WIDE)
     reset_launches()
@@ -1677,7 +1694,8 @@ def drop_case(dev):
 
 def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, close, work: int,
                        unit: str, kl_bounds_pair: int = 0, kl_bound_indexed: int = 0,
-                       trees: int | None = None, validate=None, short=None) -> dict:
+                       trees: int | None = None, validate=None, short=None,
+                       captures: bool = False) -> dict:
     """One highway batch path: ``run(device, n, noise)`` plans the first
     ``n`` trees (noise None: drawn from a generator on the device).
     ``HW_PLANS`` timed plans with the launches of each KL form counted (the given
@@ -1687,7 +1705,9 @@ def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, clos
     the CPU plan of the same trees. ``short``, ``(episodes, run_short(device,
     n), KL launches)``, profiles a plan of fewer episodes instead, since
     reading a trace takes time in proportion to its kernels; the plan under
-    noise then runs unprofiled."""
+    noise then runs unprofiled. ``captures``: a plan under noise replays its
+    episodes as CUDA graphs, captured at its signature's first plan, which
+    runs once before the profiled one."""
     trees = trees or TREES
     subset = CPU_SUBSET
     plan = lambda: run(dev, trees, None)
@@ -1702,6 +1722,8 @@ def highway_batch_path(dev, name: str, run, make_noise, cut, fields, exact, clos
     print(f"  {launches} launches in {HW_PLANS} plans; {sweep_line(trees)}")
     noise = make_noise(trees)
     results = []
+    if captures:
+        run(dev, trees, noise)
     if short is None:
         profiled = profile_plan(lambda: results.append(run(dev, trees, noise)), host_events=False)
         kl_expected = kl_bounds_pair + kl_bound_indexed
@@ -1831,7 +1853,7 @@ def check_highway_batch_paths(dev) -> dict:
          "used"),
         ("sa_cum_reward", "sa_mu_ucb", "sa_mu_lcb", "value_lower", "value_upper"),
         HW_GBOP_TREES * E * H, "sample-steps", kl_bounds_pair=HW_GBOP_KL_LAUNCHES,
-        trees=HW_GBOP_TREES,
+        trees=HW_GBOP_TREES, captures=True,
         validate=lambda g: expect((g["n_count"].sum(axis=1) == E * H).all()
                                   and (g["sa_mu_lcb"] <= g["sa_mu_ucb"]).all(),
                                   "stochastic GBOP on highway: counts or bounds"))

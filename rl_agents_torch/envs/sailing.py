@@ -74,12 +74,25 @@ class SailingEnv(FunctionalEnv):
             moves=torch.tensor(_MOVES, dtype=torch.int64, device=device),
             diag=torch.tensor(_DIAG, dtype=torch.float32, device=device))
 
-    def reset(self, params: SailingParams, generator, batch: int = 1):
+    def reset_noise(self, params: SailingParams, generator, batch: int = 1):
+        """The reset's input, ``(pos [batch, 2], wind [batch])`` int64, as
+        ``reset`` takes it without ``noise``: every boat at the origin, each
+        wind drawn uniformly over the 8 directions on ``generator``'s device.
+        A caller that plans from other positions hands them to ``reset`` as
+        ``noise`` instead."""
         device = params.stability.device
         wind = torch.randint(0, 8, (batch,), generator=generator, device=generator.device)
-        state = SailingState(pos=torch.zeros((batch, 2), dtype=torch.int64, device=device),
-                             wind=wind.to(device),
-                             t=torch.zeros(batch, dtype=torch.int64, device=device))
+        return torch.zeros((batch, 2), dtype=torch.int64, device=device), wind.to(device)
+
+    def reset(self, params: SailingParams, generator, batch: int = 1, noise=None):
+        """``batch`` boats at their start: ``noise``, positions ``[batch, 2]``
+        and winds ``[batch]``, where it is given, else ``reset_noise``'s."""
+        device = params.stability.device
+        pos, wind = self.reset_noise(params, generator, batch) if noise is None else noise
+        state = SailingState(
+            pos=torch.as_tensor(pos, dtype=torch.int64, device=device).reshape(batch, 2).clone(),
+            wind=torch.as_tensor(wind, dtype=torch.int64, device=device).reshape(batch).clone(),
+            t=torch.zeros(batch, dtype=torch.int64, device=device))
         return state, self.observe(params, state)
 
     def observe(self, params, state: SailingState):
@@ -112,6 +125,15 @@ class SailingEnv(FunctionalEnv):
         new_state = SailingState(pos=pos, wind=wind, t=t)
         return StepOut(new_state, self.observe(params, new_state), reward, arrived,
                        t >= self.max_episode_steps, {"cost": cost})
+
+    def transition(self, params: SailingParams, state: SailingState, action, generator=None,
+                   noise=None) -> StepOut:
+        """``step``, except that where neither ``generator`` nor ``noise`` is
+        given the wind turns under ``null_noise``, the one fixed draw (``step``
+        raises there)."""
+        if generator is None and noise is None:
+            noise = self.null_noise(state.wind.shape[0], state.wind.device)
+        return self.step(params, state, action, generator, noise)
 
 
 class SailingMDPAccessor:
