@@ -172,10 +172,11 @@ non-zero without its final line:
     CPU (plans, counts and stream digits equal);
 32. KL-OLOP on ``MiniGrid-Empty-16x16-v0`` (``GridWorld/empty.json``) at
     ``GridWorld/agents/kl-olop.json``'s 55 episodes x horizon 9, 4096 trees
-    from seeded cells and headings, one ``kl_bound_indexed_`` launch per
+    from seeded cells and headings, every episode one CUDA-graph replay (its
+    drop uniforms handed in), one ``kl_bound_indexed_`` launch per
     episode, the first 64 trees against the CPU plan under the same draws
     (phase 3 also holds the kernel against its plain version on three
-    episodes' inputs of this plan); ``kl-olop.json`` on ``empty.json`` and
+    episodes' inputs of this plan, run eagerly); ``kl-olop.json`` on ``empty.json`` and
     ``uct.json`` on ``collect_stochastic.json``, 3 steps each;
 33. MDP-GapE on ``DummyEnv/gridenv_stoch.json`` at ``DummyEnv/agents/
     mdp-gape.json``'s 35 (+1) x 5, 4096 trees, 36 ``kl_bounds_pair_``
@@ -3347,11 +3348,13 @@ def minigrid_case(dev):
 def minigrid_kl_calls(dev) -> list:
     """``[((out, sum, count, nodes, threshold), kwargs), ...]``: the inputs of
     the ``kl_bound_indexed_`` launches of episodes ``MG_RECORDED`` of one
-    4096-tree KL-OLOP plan on MiniGrid, as the planner passed them."""
+    4096-tree KL-OLOP plan on MiniGrid, as the planner passed them. The plan
+    runs its episodes eagerly, so that each launch is a call of the
+    planner's wrapper (a replayed episode makes none)."""
     from rl_agents_torch.agents.tree_search import olop
 
     env, params, states, draws = minigrid_case(dev)
-    calls, seen, inner = [], [0], olop.kl_bound_indexed_
+    calls, seen, inner, rule = [], [0], olop.kl_bound_indexed_, olop.episode_graph_declines
 
     def recording(out, _sum, count, nodes, threshold, **kwargs):
         if seen[0] in MG_RECORDED:
@@ -3361,11 +3364,12 @@ def minigrid_kl_calls(dev) -> list:
         return inner(out, _sum, count, nodes, threshold, **kwargs)
 
     olop.kl_bound_indexed_ = recording
+    olop.episode_graph_declines = lambda *args: "each launch recorded"
     try:
         olop.olop_plan(env, params, states(dev, TREES), device=dev, **draws(dev, TREES),
                        **MG_OLOP)
     finally:
-        olop.kl_bound_indexed_ = inner
+        olop.kl_bound_indexed_, olop.episode_graph_declines = inner, rule
     expect(seen[0] == MG_OLOP["episodes"], f"a MiniGrid plan made {seen[0]} indexed KL calls")
     return calls
 
@@ -3385,21 +3389,30 @@ def zero_kl_agent(dev, name: str, env_config, agent_config) -> dict:
 
 def check_minigrid_paths(dev) -> dict:
     """KL-OLOP on ``MiniGrid-Empty-16x16-v0`` at ``kl-olop.json``'s 55 x 9, 4096
-    trees, one ``kl_bound_indexed_`` launch per episode, one plan timed and
+    trees, every episode replayed as one CUDA graph (the draws are handed
+    in; the capture made in a plan before the timed one), one
+    ``kl_bound_indexed_`` launch per episode, one plan timed and
     its first 64 trees held against the CPU plan under the same draws, a
     5-episode plan profiled; then
     ``kl-olop.json`` on ``empty.json`` and ``uct.json`` on
     ``collect_stochastic.json``, 3 steps each."""
     from rl_agents_torch.agents.tree_search.batch import olop_plan_batch
+    from rl_agents_torch.trainer.profiling import counters
 
     env, params, states, draws = minigrid_case(dev)
     episodes, horizon = MG_OLOP["episodes"], MG_OLOP["horizon"]
     states0, noise = states(dev, TREES), draws(dev, TREES)
     plan = lambda: olop_plan_batch(env, params, states0, device=dev, **noise, **MG_OLOP)
+    plan()  # the episode's capture
     reset_launches()
+    before = counters.copy()
     outs = []
-    times = timed_plans(lambda: outs.append(plan()), 1)  # the kernels are warm from phase 14
+    times = timed_plans(lambda: outs.append(plan()), 1)
     launches = read_launches()
+    paths = [(counters - before)[f"olop.{name}"] for name in
+             ("episode_eager.calls", "episode_graph.replays", "episode_graph.captures")]
+    print(f"  KL-OLOP episodes on MiniGrid (eager, replayed, captures): {tuple(paths)}")
+    expect(paths == [0, episodes, 0], f"a MiniGrid plan's episodes took {paths}")
     got = plan_fields(*outs[0])
     want = plan_fields(*olop_plan_batch(env, env.default_params(CPU), states(CPU, CPU_SUBSET),
                                         device=CPU, **draws(CPU, CPU_SUBSET), **MG_OLOP))

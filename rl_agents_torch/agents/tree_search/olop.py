@@ -13,7 +13,9 @@ leading tree axis on every arena field and indexes rows directly with
 only for the TPU. The KL-UCB of every node an episode visited is one
 ``kl_bound_indexed_`` call over that episode's path ``[H, B]``, after its
 descent: on a CUDA device that is one launch of the hand-written kernel per
-episode. Nothing inside the episode loop reads a value back to the host.
+episode. Nothing inside the episode loop reads a value back to the host, so
+on the card an episode that draws nothing is one CUDA-graph replay
+(``_EpisodeGraph``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import numpy as np
 import torch
 
 from rl_agents_torch.agents.tree_search.common import AbstractTreeSearchAgent, allocation
+from rl_agents_torch.agents.tree_search.episode_graph import EpisodeGraph, Kept, env_key
+from rl_agents_torch.agents.tree_search.mcts_fused import episode_graph_declines
 from rl_agents_torch.envs.base import FunctionalEnv, params_to
 from rl_agents_torch.ops.kl_bound import kl_bound_indexed_
 from rl_agents_torch.trainer.profiling import counters, span
@@ -71,6 +75,25 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
     drawn from ``generator``. ``env_noise`` is a stochastic env's own noise
     for every step, ``[episodes, horizon, B, ...]``; without it the env draws
     from ``generator``.
+
+    The continuation actions are drawn before the first episode, so where
+    ``episode_graph_declines`` gives None (``env_noise`` given or an env
+    whose transition draws nothing, such as the highway family; no grad; a
+    CUDA device; no capture already under way) nothing inside an episode
+    draws, and each episode replays one CUDA graph (``_EpisodeGraph``,
+    captured in the first plan of its signature; a plan of fewer episodes
+    shares it, one of more captures again). Every other call runs the
+    episodes eagerly. Both run ``_episode``: the same kernels in the same
+    order, the same bits.
+
+    Traced (``trainer/profiling.py``), the call is one ``planner.plan`` span;
+    an eager episode records ``env.transition`` at each step, a replayed one
+    is one ``olop.episode``. ``counters["olop.episode_graph.replays"]`` and
+    ``"olop.episode_eager.calls"`` count the episodes of each path,
+    ``"olop.episode_graph.captures"`` the captures, and ``"host.syncs"`` the
+    plan's copies from the host; nothing inside the episode loop reads a
+    value back. A replay adds what its capture counted, so each counter
+    reads as the eager path's.
     """
     device = resolve_device(device)
     with span("planner.plan"):
@@ -89,44 +112,13 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
             [(np.float32(1) - g32 ** np.float32(k)) / (np.float32(1) - g32) for k in range(H + 2)],
             dtype=f32, device=device)
         gamma = torch.tensor(g32, device=device)
-        # the two copies to the card wait for its stream, and so does the root's
-        # init_upper below, which indexes the table with a device scalar
-        counters["host.syncs"] += 3
-        rows = torch.arange(B, device=device)
-        path_rows = rows.expand(H, B)
-        offsets = torch.arange(A, device=device)
-
-        def init_upper(depth):
-            return upper_table[H + 1 - depth]
-
+        counters["host.syncs"] += 2  # the two copies to the card wait for its stream
         kl = ucb_type == "kullback-leibler"
-        parent = torch.full((B, N), -1, dtype=i64, device=device)
-        children = torch.full((B, N, A), -1, dtype=i64, device=device)
-        depth = torch.zeros((B, N), dtype=i64, device=device)
-        count = torch.zeros((B, N), dtype=i64, device=device)
-        cum_reward = torch.zeros((B, N), dtype=f32, device=device)
-        mu_ucb = torch.full((B, N), 1.0 if kl else torch.inf, dtype=f32, device=device)
-        value_upper = torch.zeros((B, N), dtype=f32, device=device)
-        value_upper[:, 0] = init_upper(torch.zeros((), dtype=i64, device=device))
-        done = torch.zeros((B, N), dtype=torch.bool, device=device)
-        used = torch.ones(B, dtype=i64, device=device)
+        rows = torch.arange(B, device=device)
 
         time = torch.arange(1, E + 1, dtype=f32, device=device) if not time_global \
             else torch.full((E,), float(E), dtype=f32, device=device)
         thresholds = threshold_coeff * torch.log(time)
-
-        def update_reward_ucb(path, threshold):
-            """mu_ucb of the path's nodes ``[H, B]`` from their statistics."""
-            if kl:
-                kl_bound_indexed_(mu_ucb, cum_reward, count, path, threshold,
-                                  iters=NEWTON_MAX_ITERATIONS, eps=1e-2)
-                return
-            # hoeffding: mu + sqrt(threshold / (2 n)) (the reference's hoeffding
-            # branch is dormant, olop.py:153-158)
-            cnt = count[path_rows, path].to(f32)
-            safe = torch.clamp(cnt, min=1.0)
-            bound = cum_reward[path_rows, path] / safe + torch.sqrt(threshold / (2.0 * safe))
-            mu_ucb[path_rows, path] = torch.where(cnt == 0, torch.inf, bound)
 
         if continuation_uniform:
             if random_actions is None:
@@ -143,75 +135,37 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
         if env_noise is not None:
             env_noise = noise_tensor(env_noise, device)
 
-        def child_values(values, ch, fill):
-            """values[b, ch[b, a]] where ch >= 0, else ``fill``."""
-            return torch.where(ch >= 0, values.gather(1, ch.clamp(min=0)), fill)
-
-        path = torch.empty((H, B), dtype=i64, device=device)
-        for episode in range(E):
-            node = torch.zeros(B, dtype=i64, device=device)
-            state = states0
-            for h in range(H):
-                # expand when leaf (reference: olop.py:79-82)
-                is_leaf = children[rows, node, 0] < 0
-                leaf_a = is_leaf[:, None]
-                child_ids = used[:, None] + offsets
-                children[rows, node] = torch.where(leaf_a, child_ids, children[rows, node])
-                # a full arena puts non-leaf trees' ids past the end: clamp, and
-                # write the old values back there
-                slots = child_ids.clamp(max=N - 1)
-                d = (depth[rows, node] + 1)[:, None].expand(B, A)
-                parent.scatter_(1, slots, torch.where(leaf_a, node[:, None].expand(B, A),
-                                                      parent.gather(1, slots)))
-                depth.scatter_(1, slots, torch.where(leaf_a, d, depth.gather(1, slots)))
-                value_upper.scatter_(1, slots, torch.where(leaf_a, init_upper(d),
-                                                           value_upper.gather(1, slots)))
-                used = used + torch.where(is_leaf, A, 0)
-
-                ch = children[rows, node]
-                ucb_action = child_values(value_upper, ch, -torch.inf).argmax(dim=1)
-                action = torch.where(is_leaf, random_actions[episode, h], ucb_action)
-
-                with span("env.transition"):  # the observation is unused
-                    out = env.transition(params, state, action, generator,
-                                         None if env_noise is None else env_noise[episode, h])
-                child = ch.gather(1, action[:, None]).squeeze(1)
-                # node reward statistics update (reference: olop.py:132-142)
-                child_done = out.terminated | done[rows, child]
-                reward = torch.where(child_done, 0.0, out.reward.to(f32))
-                cum_reward[rows, child] = cum_reward[rows, child] + reward
-                count[rows, child] = count[rows, child] + 1
-                done[rows, child] = child_done
-                path[h] = child
-                node, state = child, out.state
-
-            # the reference updates mu_ucb at every step of the descent
-            # (olop.py:132-142); one update over the whole path after it is exact:
-            # mu_ucb is read only by the backup below, and depth grows by one a
-            # step, so the path visits each node once and its statistics are final
-            update_reward_ucb(path, thresholds[episode])
-
-            # backup B-values to the root (reference: olop.py:182-193); a leaf
-            # lies at depth <= H, so H + 1 trips reach every root
-            for _ in range(H + 1):
-                active = node >= 0
-                n = node.clamp(min=0)
-                ch = children[rows, n]
-                best_child = child_values(value_upper, ch, -torch.inf).amax(dim=1)
-                mu_n = mu_ucb[rows, n]
-                new_v = torch.where((ch >= 0).any(dim=1), fma(gamma, best_child, mu_n), mu_n)
-                value_upper[rows, n] = torch.where(active, new_v, value_upper[rows, n])
-                node = torch.where(active, parent[rows, n], node)
+        if episode_graph_declines(env, device, random_actions, env_noise,
+                                  (*params, *states0, env_noise)) is None:
+            replayed = _episode_graph(env, params, states0, env_noise, A, H, kl, N)
+            replayed.start(params, states0, upper_table, gamma)
+            for episode in range(E):
+                with span("olop.episode"):
+                    replayed.replay(random_actions[episode], thresholds[episode],
+                                    None if env_noise is None else env_noise[episode])
+            # later plans replay into the same buffers: the caller gets copies,
+            # cut to this plan's N slots
+            tree = OLOPTree(*(x[:, :N].clone() for x in replayed.tree[:-1]),
+                            replayed.tree.used.clone())
+        else:
+            tree = _start(_arena(B, N, A, device), upper_table, kl)
+            offsets = torch.arange(A, device=device)
+            path = torch.empty((H, B), dtype=i64, device=device)
+            for episode in range(E):
+                counters["olop.episode_eager.calls"] += 1
+                _episode(env, params, states0, generator, tree, random_actions[episode],
+                         thresholds[episode], None if env_noise is None else env_noise[episode],
+                         upper_table, gamma, rows, offsets, path, kl)
 
         # plan extraction: best count, ties by value_upper (olop.py:126-130)
         node = torch.zeros(B, dtype=i64, device=device)
         live = torch.ones(B, dtype=torch.bool, device=device)
         actions = []
         for _ in range(H):
-            ch = children[rows, node]
+            ch = tree.children[rows, node]
             valid = ch >= 0
-            counts = child_values(count, ch, -1)
-            cvu = child_values(value_upper, ch, 0.0)
+            counts = _child_values(tree.count, ch, -1)
+            cvu = _child_values(tree.value_upper, ch, 0.0)
             tie = valid & (counts == counts.amax(dim=1, keepdim=True))
             action = torch.where(tie, cvu, -torch.inf).argmax(dim=1)
             child = ch.gather(1, action[:, None]).squeeze(1)
@@ -220,9 +174,195 @@ def olop_plan(env: FunctionalEnv, params, states0, generator: torch.Generator | 
             actions.append(torch.where(live, action, -1))
         actions = torch.stack(actions, dim=1)
         lengths = (actions >= 0).sum(dim=1)
-        tree = OLOPTree(parent, children, depth, count, cum_reward, mu_ucb, value_upper, done,
-                        used)
         return actions, lengths, tree
+
+
+def _child_values(values, ch, fill):
+    """values[b, ch[b, a]] where ch >= 0, else ``fill``."""
+    return torch.where(ch >= 0, values.gather(1, ch.clamp(min=0)), fill)
+
+
+def _arena(trees: int, slots: int, num_actions: int, device) -> OLOPTree:
+    """An unfilled ``OLOPTree`` of ``slots`` slots for each of ``trees`` trees."""
+    i64, f32 = torch.int64, torch.float32
+    empty = lambda dtype, *shape: torch.empty((trees, slots, *shape), dtype=dtype, device=device)
+    return OLOPTree(parent=empty(i64), children=empty(i64, num_actions), depth=empty(i64),
+                    count=empty(i64), cum_reward=empty(f32), mu_ucb=empty(f32),
+                    value_upper=empty(f32), done=empty(torch.bool),
+                    used=torch.empty(trees, dtype=i64, device=device))
+
+
+def _start(tree: OLOPTree, upper_table, kl: bool) -> OLOPTree:
+    """``tree`` filled in place as a plan starts: every tree its root alone,
+    no parent or children, zero statistics, the reward bounds 1 (KL) or inf
+    (Hoeffding), the root's B-value the table's last entry (depth 0), one
+    slot used. Every write stays on the device."""
+    parent, children, depth, count, cum_reward, mu_ucb, value_upper, done, used = tree
+    parent.fill_(-1)
+    children.fill_(-1)
+    for x in (depth, count, cum_reward, value_upper, done):
+        x.zero_()
+    mu_ucb.fill_(1.0 if kl else torch.inf)
+    value_upper[:, 0] = upper_table[-1]
+    used.fill_(1)
+    return tree
+
+
+def _episode(env, params, states0, generator, tree: OLOPTree, continuation, threshold,
+             env_draws, upper_table, gamma, rows, offsets, path, kl: bool):
+    """One episode, in place on ``tree`` (``[B, N]`` arenas at any N the
+    plan's nodes fit in): the H-step descent from ``states0`` by maximal
+    B-value, expanding leaves and continuing them with ``continuation``
+    ``[H, B]``, then the reward upper bounds of the path's nodes under the 0-d
+    ``threshold``, then the B-values backed up to the roots. ``env_draws`` is
+    the episode's env noise ``[H, B, ...]`` or None, ``path`` an ``[H, B]``
+    buffer the descent writes."""
+    parent, children, depth, count, cum_reward, mu_ucb, value_upper, done, used = tree
+    H, B = path.shape
+    A = offsets.shape[0]
+    N = parent.shape[1]
+    f32 = torch.float32
+    node = torch.zeros(B, dtype=torch.int64, device=rows.device)
+    state = states0
+    for h in range(H):
+        # expand when leaf (reference: olop.py:79-82)
+        is_leaf = children[rows, node, 0] < 0
+        leaf_a = is_leaf[:, None]
+        child_ids = used[:, None] + offsets
+        children[rows, node] = torch.where(leaf_a, child_ids, children[rows, node])
+        # a full arena puts non-leaf trees' ids past the end: clamp, and
+        # write the old values back there
+        slots = child_ids.clamp(max=N - 1)
+        d = (depth[rows, node] + 1)[:, None].expand(B, A)
+        parent.scatter_(1, slots, torch.where(leaf_a, node[:, None].expand(B, A),
+                                              parent.gather(1, slots)))
+        depth.scatter_(1, slots, torch.where(leaf_a, d, depth.gather(1, slots)))
+        value_upper.scatter_(1, slots, torch.where(leaf_a, upper_table[H + 1 - d],
+                                                   value_upper.gather(1, slots)))
+        used += torch.where(is_leaf, A, 0)
+
+        ch = children[rows, node]
+        ucb_action = _child_values(value_upper, ch, -torch.inf).argmax(dim=1)
+        action = torch.where(is_leaf, continuation[h], ucb_action)
+
+        with span("env.transition"):  # the observation is unused
+            out = env.transition(params, state, action, generator,
+                                 None if env_draws is None else env_draws[h])
+        child = ch.gather(1, action[:, None]).squeeze(1)
+        # node reward statistics update (reference: olop.py:132-142)
+        child_done = out.terminated | done[rows, child]
+        reward = torch.where(child_done, 0.0, out.reward.to(f32))
+        cum_reward[rows, child] = cum_reward[rows, child] + reward
+        count[rows, child] = count[rows, child] + 1
+        done[rows, child] = child_done
+        path[h] = child
+        node, state = child, out.state
+
+    # the reference updates mu_ucb at every step of the descent
+    # (olop.py:132-142); one update over the whole path after it is exact:
+    # mu_ucb is read only by the backup below, and depth grows by one a
+    # step, so the path visits each node once and its statistics are final
+    if kl:
+        kl_bound_indexed_(mu_ucb, cum_reward, count, path, threshold,
+                          iters=NEWTON_MAX_ITERATIONS, eps=1e-2)
+    else:
+        # hoeffding: mu + sqrt(threshold / (2 n)) (the reference's hoeffding
+        # branch is dormant, olop.py:153-158)
+        path_rows = rows.expand(H, B)
+        cnt = count[path_rows, path].to(f32)
+        safe = torch.clamp(cnt, min=1.0)
+        bound = cum_reward[path_rows, path] / safe + torch.sqrt(threshold / (2.0 * safe))
+        mu_ucb[path_rows, path] = torch.where(cnt == 0, torch.inf, bound)
+
+    # backup B-values to the root (reference: olop.py:182-193); a leaf
+    # lies at depth <= H, so H + 1 trips reach every root
+    for _ in range(H + 1):
+        active = node >= 0
+        n = node.clamp(min=0)
+        ch = children[rows, n]
+        best_child = _child_values(value_upper, ch, -torch.inf).amax(dim=1)
+        mu_n = mu_ucb[rows, n]
+        new_v = torch.where((ch >= 0).any(dim=1), fma(gamma, best_child, mu_n), mu_n)
+        value_upper[rows, n] = torch.where(active, new_v, value_upper[rows, n])
+        node = torch.where(active, parent[rows, n], node)
+
+
+class _EpisodeGraph(EpisodeGraph):
+    """An OLOP episode (``_episode``) of one signature captured as a CUDA
+    graph, and the static buffers it reads and writes: the arena at
+    ``capacity`` slots a tree (a plan of N slots uses its first N; a tree
+    never writes past its plan's nodes, so the rest changes no bit), the
+    params, the start states, the B-value table, gamma, the index vectors,
+    the path, and one episode's continuation actions, threshold and env
+    noise. Everything that depends on the plan's episodes (the thresholds,
+    the arena's fill) enters through these buffers. ``start`` loads a plan's
+    inputs and clears the arena; ``replay`` copies in an episode's inputs and
+    replays it, capturing it first in the first plan. Every copy is from the
+    device. Nothing in a captured episode draws from a generator, so it is
+    given none."""
+
+    prefix = "olop"
+
+    def __init__(self, env, params, states0, env_noise, num_actions: int, horizon: int,
+                 kl: bool, capacity: int):
+        device = states0[0].device
+        super().__init__(device)
+        B, A, H = states0[0].shape[0], num_actions, horizon
+        i64, f32 = torch.int64, torch.float32
+        # held: a key that falls back on the env's identity stays unique
+        self.env, self.kl, self.capacity = env, kl, capacity
+        like = lambda x: torch.empty(x.shape, dtype=x.dtype, device=device)
+        self.params = type(params)(*map(like, params))
+        self.states0 = type(states0)(*map(like, states0))
+        self.upper_table = torch.empty(H + 2, dtype=f32, device=device)
+        self.gamma = torch.empty((), dtype=f32, device=device)
+        self.tree = _arena(B, capacity, A, device)
+        self.rows = torch.arange(B, device=device)
+        self.offsets = torch.arange(A, device=device)
+        self.path = torch.empty((H, B), dtype=i64, device=device)
+        self.continuation = torch.empty((H, B), dtype=i64, device=device)
+        self.threshold = torch.empty((), dtype=f32, device=device)
+        self.env_draws = None if env_noise is None else like(env_noise[0])
+
+    def start(self, params, states0, upper_table, gamma):
+        for static, x in zip((*self.params, *self.states0), (*params, *states0)):
+            static.copy_(x)
+        self.upper_table.copy_(upper_table)
+        self.gamma.copy_(gamma)
+        self._clear()
+
+    def _clear(self):
+        _start(self.tree, self.upper_table, self.kl)
+
+    def replay(self, continuation, threshold, env_draws):
+        self.continuation.copy_(continuation)
+        self.threshold.copy_(threshold)
+        if env_draws is not None:
+            self.env_draws.copy_(env_draws)
+        super().replay(lambda: _episode(
+            self.env, self.params, self.states0, None, self.tree, self.continuation,
+            self.threshold, self.env_draws, self.upper_table, self.gamma, self.rows,
+            self.offsets, self.path, self.kl))
+
+
+_kept = Kept(4)
+
+
+def _episode_graph(env, params, states0, env_noise, num_actions: int, horizon: int, kl: bool,
+                   capacity: int) -> _EpisodeGraph:
+    """The captured episode of this call's signature: the env
+    (``episode_graph.env_key``: an agent's preprocessor makes an env of one
+    configuration anew each act, and its acts share one capture), the
+    params' and the state's types, shapes and dtypes, the device, the
+    action count, the horizon, the bound's form and the env noise's shape. A
+    new one, not yet captured, where none is kept or the kept one's arena
+    holds fewer than ``capacity`` slots a tree."""
+    key = (env_key(env), type(params), tuple((x.shape, x.dtype) for x in params), type(states0),
+           tuple((x.shape, x.dtype) for x in states0), states0[0].device, num_actions, horizon,
+           kl, None if env_noise is None else (env_noise.shape[1:], env_noise.dtype))
+    return _kept.get(key, lambda: _EpisodeGraph(env, params, states0, env_noise, num_actions,
+                                                horizon, kl, capacity),
+                     lambda kept: kept.capacity >= capacity)
 
 
 class OLOPAgent(AbstractTreeSearchAgent):

@@ -21,6 +21,7 @@ two packages lay out the same grids.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -34,6 +35,14 @@ from rl_agents_torch.utils.noise import noise_tensor
 TURN_LEFT, TURN_RIGHT, FORWARD = 0, 1, 2
 # direction -> displacement (MiniGrid: 0 right, 1 down, 2 left, 3 up)
 _DIR_VEC = ((1, 0), (0, 1), (-1, 0), (0, -1))
+
+
+@functools.lru_cache(maxsize=None)
+def _dir_vectors(device: torch.device):
+    """``_DIR_VEC`` as a tensor on ``device``, made once: a step then copies
+    nothing from the host, so a CUDA graph can capture it (KL-OLOP's episode
+    graph does, where a plan hands the drop uniforms in)."""
+    return torch.tensor(_DIR_VEC, dtype=torch.int64, device=device)
 
 
 class MiniGridParams(NamedTuple):
@@ -109,8 +118,7 @@ class MiniGridEnv(FunctionalEnv):
         act = torch.where(u < params.stochasticity, -1, action)
         new_dir = (state.dir + torch.where(act == TURN_RIGHT, 1, 0)
                    + torch.where(act == TURN_LEFT, 3, 0)) % 4
-        dir_vec = torch.tensor(_DIR_VEC, dtype=torch.int64, device=device)
-        fwd = torch.clamp(state.pos + dir_vec[new_dir], 1, self.size - 2)  # walls
+        fwd = torch.clamp(state.pos + _dir_vectors(device)[new_dir], 1, self.size - 2)  # walls
         pos = torch.where((act == FORWARD)[:, None], fwd, state.pos)
         t = state.t + 1
         if self.task == "empty":

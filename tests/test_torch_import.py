@@ -89,7 +89,8 @@ def test_the_port_has_every_module_of_the_jax_package():
     indexing), ``ops/pallas_kl.py`` is ``ops/kl_bound.py``, and the port's
     own additions (among them the highway transition's kernel, which XLA
     fuses in the JAX package, the constrained solve's kernel, which XLA
-    compiles there, and the build the kernels share)."""
+    compiles there, the build the kernels share, and the capture and replay of
+    a planner's episode as one CUDA graph)."""
     def modules(package):
         return {p.relative_to(REPO / package).as_posix()
                 for p in (REPO / package).rglob("*.py")}
@@ -99,8 +100,9 @@ def test_the_port_has_every_module_of_the_jax_package():
     assert port_modules - jax_modules == {
         "convert.py", "experiments.py", "utils/device.py", "utils/noise.py", "ops/kl_bound.py",
         "ops/highway_transition.py", "ops/max_expectation.py", "ops/cuda_build.py",
-        "scripts/__init__.py", "scripts/planners_evaluation.py",
-        "scripts/planners_robust_evaluation.py", "scripts/planners_visualization.py"}
+        "agents/tree_search/episode_graph.py", "scripts/__init__.py",
+        "scripts/planners_evaluation.py", "scripts/planners_robust_evaluation.py",
+        "scripts/planners_visualization.py"}
 
 
 def test_the_port_imports_without_matplotlib_or_pygame():

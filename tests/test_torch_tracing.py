@@ -120,14 +120,15 @@ def test_host_syncs_count_the_blocking_reads_of_an_act_a_step_and_a_plan():
     # terminated and truncated
     syncs, _ = _syncs_of(lambda: handle.step(0))
     assert syncs == 1 + 1 + 3 + 3
-    # a KL-OLOP batch plan: three at its start, none in its transitions
+    # a KL-OLOP batch plan: two at its start (the B-value table and gamma),
+    # none in its transitions
     states = tuple(x.expand(4, *x.shape[1:]) for x in handle.state)
     states = type(handle.state)(*states)
     syncs, _ = _syncs_of(lambda: olop_plan_batch(
         handle.functional, handle.params, states, torch.Generator().manual_seed(0),
         num_actions=5, episodes=6, horizon=3, gamma=0.7, threshold_coeff=2.0,
         continuation_uniform=True, device="cpu"))
-    assert syncs == 3
+    assert syncs == 2
 
 
 def _finite_mdp(models: int):
